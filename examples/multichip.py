@@ -6,12 +6,13 @@ CPU (the driver validates the same paths this way):
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python examples/multichip.py
 
-The reference library is single-threaded C; this layer is where the TPU
-build scales (SURVEY.md 2.6): utterance batches shard over the 'data' mesh
-axis (no cross-item communication anywhere in LWS), and long spectrograms
-shard frames over 'time' for batch sweeps with a (Q-1)-frame ppermute halo
-exchange per sweep. On a real pod, use lws_tpu.parallel.init_distributed()
-first and make_host_mesh() so halos ride ICI (see docs/MULTIHOST.md).
+The reference library is single-threaded C; this layer is where this build
+scales (SURVEY.md 2.6): utterance batches shard over the 'data' mesh axis
+(no cross-item communication anywhere in LWS), and long spectrograms shard
+frames over 'time' for batch sweeps with a (Q-1)-frame ppermute halo
+exchange per sweep. Across several hosts, use
+lws_jax.parallel.init_distributed() first and make_host_mesh() (see
+docs/MULTIHOST.md).
 """
 import os
 import sys
@@ -25,8 +26,8 @@ import jax
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), os.pardir))
 
-import lws_tpu
-from lws_tpu.parallel import make_mesh, shard_pair, data_parallel_run
+import lws_jax
+from lws_jax.parallel import make_mesh, shard_pair, data_parallel_run
 
 
 def main():
@@ -37,7 +38,7 @@ def main():
     print(f"devices: {n}x {devs[0].platform}, mesh: "
           f"data={mesh.shape['data']} x time={mesh.shape['time']}")
 
-    proc = lws_tpu.lws(512, 128, mode="music", batch_iterations=50)
+    proc = lws_jax.lws(512, 128, mode="music", batch_iterations=50)
 
     # --- 1. data-parallel: a batch of utterances, sharded over 'data' ------
     rng = np.random.default_rng(0)

@@ -16,8 +16,11 @@ import time
 import numpy as np
 
 sys.path.insert(0, ".")
-import lws_tpu
-from lws_tpu.io import read_wav, write_wav
+import lws_jax
+from lws_jax.io import read_wav, write_wav
+from lws_jax.device import use_compile_cache
+
+use_compile_cache()
 
 
 def main():
@@ -33,7 +36,7 @@ def main():
 
     # reference demo configuration: 512-pt FFT, 128 hop (Q=4), L=5
     # (matlab/run_lws.m:48-55); music mode = no-future + online + batch
-    proc = lws_tpu.lws(512, 128, mode="music")
+    proc = lws_jax.lws(512, 128, mode="music")
 
     X = proc.stft(x)
     A = np.abs(X)

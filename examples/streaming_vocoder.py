@@ -4,7 +4,8 @@ The production TTS post-processing loop the reference enables offline
 (python/lws.pyx online mode + a user-side mel inversion) as a real-time
 service: an acoustic model emits mel frames, each batch of frames is
 inverted to linear magnitudes, pushed through N lockstep RTISI-LA streams
-(one device dispatch per block on TPU via the chunked Pallas backend), and
+(one device dispatch per block on a GPU via the online kernel's
+carried-state entry), and
 committed audio comes back at a fixed (look_ahead+1)-frame latency.
 Per-push latency percentiles come from StreamingLWS.stats.
 
@@ -16,9 +17,12 @@ import sys
 import numpy as np
 
 sys.path.insert(0, ".")
-import lws_tpu
-from lws_tpu.mel import linear_to_mel, mel_filterbank, mel_to_linear
-from lws_tpu.streaming import StreamingLWS
+import lws_jax
+from lws_jax.mel import linear_to_mel, mel_filterbank, mel_to_linear
+from lws_jax.streaming import StreamingLWS
+from lws_jax.device import use_compile_cache
+
+use_compile_cache()
 
 
 def main():
@@ -36,7 +40,7 @@ def main():
         + 0.02 * rng.standard_normal(t.size)
         for i in range(streams)
     ])
-    proc = lws_tpu.LWS(fsize, fshift, look_ahead=3, online_iterations=10)
+    proc = lws_jax.LWS(fsize, fshift, look_ahead=3, online_iterations=10)
     fb = mel_filterbank(n_mels, fsize, sr_hz)
     mag = np.abs(proc.stft(x))
     mel_frames = np.asarray(linear_to_mel(mag, fb))  # (S, T, n_mels)
@@ -45,12 +49,12 @@ def main():
 
     # --- the serving loop: blocks of mel frames -> linear -> push
     stream = StreamingLWS(proc, streams=streams, emit="host")
-    block = stream.block_frames if stream.backend == "pallas" else 16
+    block = stream.block_frames if stream.backend == "gpu" else 16
     print(f"backend={stream.backend}, block={block} frames, "
           f"latency={stream.latency_frames} frames "
           f"({stream.latency_frames * fshift / sr_hz * 1000:.0f} ms)")
-    # compile warm-up (first dispatch of each chunk shape compiles; remote
-    # TPU compile is seconds - exclude it from the serving latency report)
+    # compile warm-up (first dispatch of each chunk shape compiles, which
+    # takes seconds - exclude it from the serving latency report)
     warm = np.zeros((block, streams, fsize // 2 + 1))
     stream.push_frames(warm)
     stream.flush()

@@ -1,4 +1,4 @@
-"""Checkpoint / resume / failure recovery (lws_tpu/checkpoint.py).
+"""Checkpoint / resume / failure recovery (lws_jax/checkpoint.py).
 
 The key guarantees under test:
 - resuming an interrupted run reproduces the uninterrupted checkpointed run
@@ -12,14 +12,14 @@ import os
 import numpy as np
 import pytest
 
-import lws_tpu
-from lws_tpu.checkpoint import (CheckpointMismatch, load_checkpoint,
+import lws_jax
+from lws_jax.checkpoint import (CheckpointMismatch, load_checkpoint,
                                 resumable_lws, save_checkpoint)
 
 
 @pytest.fixture(scope="module")
 def proc():
-    return lws_tpu.LWS(512, 128, batch_iterations=12)
+    return lws_jax.LWS(512, 128, batch_iterations=12)
 
 
 @pytest.fixture(scope="module")
@@ -109,7 +109,7 @@ def test_transient_failure_retried(proc, spec, tmp_path, monkeypatch):
 def test_lazy_failure_retries_from_prechunk_state(proc, spec, tmp_path,
                                                   monkeypatch):
     """A device fault surfacing at materialisation (np.asarray of a lazily
-    evaluated result, the common TPU transient) must retry from the
+    evaluated result, a common device transient) must retry from the
     PRE-chunk state: retrying from the failed call's outputs would apply the
     chunk's thresholds twice and silently diverge from the uninterrupted
     run."""
@@ -184,17 +184,17 @@ def test_mesh_passthrough_matches_direct(proc, spec, tmp_path):
     """resumable_lws(mesh=...) runs the time-sharded batch path per chunk and
     reproduces the direct mesh run (docs/MULTIHOST.md long-job recovery)."""
     import jax
-    from lws_tpu.parallel import make_mesh
+    from lws_jax.parallel import make_mesh
 
     if len(jax.devices()) < 4:
         pytest.skip("needs 4 virtual devices")
     A = spec[:spec.shape[0] - spec.shape[0] % 4][None]  # (1, T%4==0, F)
     mesh = make_mesh(data=1, time=4)
     ref = np.asarray(proc.batch_lws(A, iterations=8, mesh=mesh))
-    out = np.asarray(lws_tpu.resumable_lws(
+    out = np.asarray(lws_jax.resumable_lws(
         proc, A, iterations=8, checkpoint_path=str(tmp_path / "ck.npz"),
         checkpoint_every=3, mesh=mesh))
     np.testing.assert_allclose(out, ref, atol=1e-10)
     with pytest.raises(ValueError):
-        lws_tpu.resumable_lws(proc, A, stage="nofuture", iterations=2,
+        lws_jax.resumable_lws(proc, A, stage="nofuture", iterations=2,
                               mesh=mesh)

@@ -1,6 +1,6 @@
 """Differentiability of the XLA sweep paths (backend="xla").
 
-The reference is a C library with no gradient story; lws_tpu's XLA-order
+The reference is a C library with no gradient story; lws_jax's XLA-order
 sweeps are pure jnp, so `jax.grad` flows end-to-end — magnitude in,
 recovered phase out — enabling training losses through phase recovery
 (e.g. a TTS vocoder fine-tuned against time-domain reconstructions).
@@ -18,7 +18,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from lws_tpu import LWS, get_thresholds
+from lws_jax import LWS, get_thresholds
 
 
 def _mag_with_zeros(proc, B=2, secs=0.35, sr_hz=8000):
@@ -107,7 +107,7 @@ def test_phase_update_guard_forward_identity():
     """The double-where guard changes no forward value: compare against the
     naive unguarded formula on strictly-positive data, and check the
     zero-sum case keeps the old value exactly."""
-    from lws_tpu.core.stencil import phase_update
+    from lws_jax.core.stencil import phase_update
     rng = np.random.default_rng(5)
     tr = jnp.asarray(rng.standard_normal((4, 8)))
     ti = jnp.asarray(rng.standard_normal((4, 8)))
@@ -115,7 +115,7 @@ def test_phase_update_guard_forward_identity():
     old_r = jnp.asarray(rng.standard_normal((4, 8)))
     old_i = jnp.asarray(rng.standard_normal((4, 8)))
     out_r, out_i = phase_update(tr, ti, amp, old_r, old_i, 0.0)
-    # unguarded form, same op order (rsqrt epilogue, PERF.md round-5)
+    # unguarded form, same op order (rsqrt epilogue)
     scale = amp * jax.lax.rsqrt(tr * tr + ti * ti)
     np.testing.assert_array_equal(np.asarray(out_r), np.asarray(tr * scale))
     np.testing.assert_array_equal(np.asarray(out_i), np.asarray(ti * scale))

@@ -4,8 +4,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from lws_tpu import LWS
-from lws_tpu.mel import (
+from lws_jax import LWS
+from lws_jax.mel import (
     linear_to_mel,
     mel_filterbank,
     mel_to_linear,

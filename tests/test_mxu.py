@@ -1,10 +1,9 @@
-"""MXU-order Jacobi sweeps (`order="jacobi_mxu"`): the banded-matmul
+"""Matmul-order Jacobi sweeps (`order="jacobi_mxu"`): the banded-matmul
 formulation of apply_stencil (core/stencil.py::apply_stencil_mxu).
 
 Same math as order="jacobi" with the frequency taps cast as
-(T, F+2L) @ (F+2L, F) band matmuls so the MXU does the FLOPs on TPU
-(measured 880 vs 191 audio-s/s for the elementwise Jacobi XLA path on the
-bench batch config, PERF.md). Semantics are anchored by float64 agreement
+(T, F+2L) @ (F+2L, F) band matmuls so the matrix units do the FLOPs.
+Semantics are anchored by float64 agreement
 with the elementwise path; reference role: the same whole-grid update the
 reference's batch sweep applies frame-by-frame (lwslib.cpp:283-373), in
 Jacobi order.
@@ -14,8 +13,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from lws_tpu import LWS, get_thresholds
-from lws_tpu.core.batch import lws_sweeps
+from lws_jax import LWS, get_thresholds
+from lws_jax.core.batch import lws_sweeps
 
 
 def _mk(seed, B=2, T=50, F=257):
@@ -78,7 +77,7 @@ def test_mxu_sharded_matches_unsharded():
     """order='jacobi_mxu' composes with the time-sharded halo-exchange path
     (pure XLA: shard_map needs no extra plumbing) — sharded result matches
     the unsharded sweeps."""
-    from lws_tpu.parallel import make_mesh, shard_pair, sharded_lws_sweeps
+    from lws_jax.parallel import make_mesh, shard_pair, sharded_lws_sweeps
     p = LWS(512, 128, dtype=jnp.float64)
     sr, si = _mk(4, B=2, T=64)
     thr = jnp.asarray(get_thresholds(3, 1, 0.1, 1))
@@ -92,36 +91,30 @@ def test_mxu_sharded_matches_unsharded():
                                atol=1e-9)
 
 
-def test_tpu_fallback_routes_to_mxu(monkeypatch):
-    """The TPU XLA fallback (Pallas-unsupported configs, order='gs') runs
-    the MXU Jacobi form at precision='highest' for moderate F (1.8x the
-    elementwise form at identical semantics, PERF.md) and keeps the
-    elementwise form at wide F (band inflation)."""
-    import lws_tpu.processor as procmod
+def test_mxu_order_runs_the_xla_path(monkeypatch):
+    """order='jacobi_mxu' is an XLA-path order: the processor never routes
+    it to the GPU kernels (which run the "gs" order only), even where they
+    apply, and its precision reaches the matmuls."""
+    p = LWS(512, 128, order="jacobi_mxu", precision="highest",
+            dtype=jnp.float32, interpret=True)
+    assert not p._use_kernel(257)
     calls = []
-    real = procmod.lws_sweeps
-
-    def spy(sr, si, st=None, thresholds=None, **kw):
-        calls.append(kw)
-        return real(sr, si, st=st, thresholds=thresholds, **kw)
-
-    monkeypatch.setattr(procmod, "lws_sweeps", spy)
-    monkeypatch.setattr(procmod.jax, "default_backend", lambda: "tpu")
-    p = LWS(512, 128, dtype=jnp.float32)
+    real = p._batch_xla
+    monkeypatch.setattr(p, "_batch_xla", lambda sr, si, thresholds, **kw:
+                        calls.append(kw) or real(sr, si, thresholds=thresholds,
+                                                 **kw))
     sr, si = _mk(5, B=1, T=24, F=257)
     thr = jnp.asarray(get_thresholds(2, 1, 0.1, 1), jnp.float32)
-    with pytest.warns(UserWarning, match="Jacobi-order"):
-        p._xla_fallback(None, jnp.asarray(sr, jnp.float32),
-                        jnp.asarray(si, jnp.float32), thr, st=p._st_batch)
-    assert calls[-1]["order"] == "jacobi_mxu"
-    assert calls[-1]["precision"] == "highest"
-
-    pw = LWS(4096, 1024, dtype=jnp.float32)
-    sw, iw = _mk(6, B=1, T=16, F=2049)
-    with pytest.warns(UserWarning, match="Jacobi-order"):
-        pw._xla_fallback(None, jnp.asarray(sw, jnp.float32),
-                         jnp.asarray(iw, jnp.float32), thr, st=pw._st_batch)
-    assert calls[-1]["order"] == "jacobi"
+    out = p._batch_fn(jnp.asarray(sr, jnp.float32),
+                      jnp.asarray(si, jnp.float32), thresholds=thr)
+    assert calls == [{}]
+    assert real.__wrapped__.keywords["order"] == "jacobi_mxu"
+    assert real.__wrapped__.keywords["precision"] == "highest"
+    want = lws_sweeps(jnp.asarray(sr, jnp.float32),
+                      jnp.asarray(si, jnp.float32), p._st_batch, thr,
+                      order="jacobi_mxu", precision="highest")
+    np.testing.assert_allclose(np.asarray(out[0]), np.asarray(want[0]),
+                               atol=1e-5)
 
 
 def test_mxu_processor_end_to_end():

@@ -8,8 +8,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from lws_tpu import LWS, get_thresholds
-from lws_tpu import oracle
+from lws_jax import LWS, get_thresholds
+from lws_jax import oracle
 
 pytestmark = pytest.mark.skipif(not oracle.available(), reason="g++ oracle unavailable")
 
@@ -234,30 +234,24 @@ def test_fuzz_random_geometries_vs_oracle():
 
 
 def test_xla_fallback_quality_at_unfittable_geometry(monkeypatch):
-    """Q=32 (past ops.pallas_packed.MAX_Q=16): on TPU the batch path swaps
-    the requested exact-GS order for Jacobi sweeps with a warning
-    (processor._xla_fallback). Pin what that substitution costs: at this
-    geometry the fallback must land within 1.5 dB of the float64
-    Gauss-Seidel oracle at equal iteration counts — the band the warning
-    message states."""
+    """Q=32 (past the GPU kernels' MAX_Q=8): on a GPU the batch path runs
+    the exact frame-sequential XLA scan (no order substitution, no warning)
+    and lands on the float64 Gauss-Seidel oracle's consistency."""
     import warnings as _w
-    import jax
-    import lws_tpu.processor as procmod
+    import lws_jax.device as dev
+    from lws_jax.ops import MAX_Q
 
     p = LWS(256, 8, L=3, dtype=jnp.float64)  # Q=32 > MAX_Q
-    from lws_tpu.ops.pallas_packed import MAX_Q
     assert p._Qi > MAX_Q
     rng = np.random.default_rng(13)
-    x = rng.standard_normal(2400)
+    x = rng.standard_normal(1200)
     A = np.abs(p.stft(x)).astype(np.complex128)
     thr = get_thresholds(20, 100, 0.1, 1)
 
-    # route through the TPU fallback branch on the CPU test backend: the
-    # fallback itself is pure XLA (jacobi / jacobi_mxu), so the quality it
-    # delivers here is the quality it delivers on TPU
-    monkeypatch.setattr(procmod.jax, "default_backend", lambda: "tpu")
-    assert procmod.jax is jax  # the patch reaches every call site
-    with pytest.warns(UserWarning, match="1.5 dB"):
+    monkeypatch.setattr(dev, "gpu_available", lambda: True)
+    assert not p._use_kernel(A.shape[-1])
+    with _w.catch_warnings():
+        _w.simplefilter("error")
         out_j = np.asarray(p.batch_lws(A, thresholds=thr))
     monkeypatch.undo()
 

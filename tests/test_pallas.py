@@ -1,17 +1,22 @@
-"""Pallas kernels vs the XLA reference path (interpret mode on CPU)."""
-import functools
+"""GPU sweep kernels (ops/gpu_sweeps.py) vs the XLA reference path, run in
+the Pallas interpreter on the CPU, plus the processor's dispatch rule."""
+import warnings
 
 import numpy as np
 import pytest
 
 import jax.numpy as jnp
 
-from lws_tpu import LWS, get_thresholds
-from lws_tpu.core.stencil import merge, split
-# imported from the package surface deliberately: lws_tpu.ops must export
+from lws_jax import LWS, get_thresholds
+from lws_jax.core.batch import lws_sweeps
+from lws_jax.core.online import rtisi_la
+from lws_jax.core.stencil import merge, split
+# imported from the package surface deliberately: lws_jax.ops must export
 # the production kernels the processor actually runs
-from lws_tpu.ops import (packed_lws_sweeps, packed_supported,
-                         tiled_lws_sweeps, tiled_supported)
+from lws_jax.ops import (MAX_BINS, MAX_Q, gs_sweeps, kernel_supported,
+                         online_chunk, online_chunk_init, online_sweeps,
+                         segmented_gs_sweeps)
+from lws_jax.ops.gpu_sweeps import weight_table
 
 
 def _setup(golden, dtype=jnp.float32, max_t=None):
@@ -22,111 +27,142 @@ def _setup(golden, dtype=jnp.float32, max_t=None):
             inner_scheme="jacobi")
     A = np.abs(golden.S).astype(np.complex64)
     if max_t is not None:
-        # interpret-mode runtime control: the order-parity claims are
-        # frame-count agnostic, so big geometries run on a prefix
         A = A[:max_t]
     return p, A, split(A, dtype=dtype)
 
 
-def test_tiled_micro1_matches_xla_gs(golden):
-    """The production tiled kernel reproduces the frame-sequential
-    Gauss-Seidel order: same consistency trajectory as the XLA "gs" path on
-    every golden config."""
-    if int(golden.Q) > 9:
-        pytest.skip("interpret runtime; large-Q covered by test_large_q_tiled")
-    p, A, pair = _setup(golden, max_t=80 if int(golden.Q) == 8 else None)
-    # 12 sweeps keeps interpret-mode runtime inside CI budget; the
-    # trajectory comparison is iteration-count agnostic
+def _gs(pair, st, thr, **kw):
+    return gs_sweeps(*pair, st, thr, interpret=True, **kw)
+
+
+def _online(p, pair, thr, **kw):
+    return online_sweeps(*pair, p._st_la, p._st_nofuture, p._st_af, thr,
+                         interpret=True, **kw)
+
+
+def _eq(got, want):
+    np.testing.assert_array_equal(np.asarray(got[0]), np.asarray(want[0]))
+    np.testing.assert_array_equal(np.asarray(got[1]), np.asarray(want[1]))
+
+
+def _close(got, want, atol):
+    np.testing.assert_allclose(np.asarray(got[0]), np.asarray(want[0]),
+                               atol=atol)
+    np.testing.assert_allclose(np.asarray(got[1]), np.asarray(want[1]),
+                               atol=atol)
+
+
+def test_kernel_matches_xla_gs(golden):
+    """The batch kernel reproduces the frame-sequential Gauss-Seidel order:
+    same consistency trajectory as the XLA "gs" path on every golden
+    config (f32), and float64 agreement to roundoff."""
+    p, A, pair = _setup(golden)
     thr = jnp.asarray(get_thresholds(12, 100, 0.1, 1), dtype=jnp.float32)
-    out_p = merge(*tiled_lws_sweeps(*pair, st=p._st_batch, thresholds=thr,
-                                    tile=16, micro=1, interpret=True,
-                                    inner_scheme=p.inner_scheme,
-                                    inner_passes=p.batch_inner_passes))
+    out_p = merge(*_gs(pair, p._st_batch, thr,
+                       inner_passes=p.batch_inner_passes,
+                       inner_scheme=p.inner_scheme))
     out_x = np.asarray(p.batch_lws(A, thresholds=np.asarray(thr)))
     c_p = float(np.asarray(p.get_consistency(out_p)))
     c_x = float(np.asarray(p.get_consistency(out_x)))
     assert abs(c_p - c_x) < 0.25, (c_p, c_x)
 
+    p64, _, pair64 = _setup(golden, dtype=jnp.float64, max_t=24)
+    thr64 = jnp.asarray(get_thresholds(3, 1, 0.1, 1))
+    ref = lws_sweeps(*pair64, st=p64._st_batch, thresholds=thr64, order="gs",
+                     inner_passes=p64.batch_inner_passes)
+    _close(_gs(pair64, p64._st_batch, thr64,
+               inner_passes=p64.batch_inner_passes), ref, 1e-8)
 
-def test_tiled_short_run_is_exact(golden_q4):
-    """Over a few sweeps the tiled micro=1 order matches XLA-gs numerically."""
+
+@pytest.mark.parametrize("stage", ["batch", "nofuture"])
+def test_kernel_short_run_is_exact(golden_q4, stage):
+    """Over a few sweeps the kernel matches the XLA gs path numerically."""
     p, A, pair = _setup(golden_q4)
     thr = jnp.asarray(get_thresholds(2, 1, 0.1, 1), dtype=jnp.float32)
-    out_p = merge(*tiled_lws_sweeps(*pair, st=p._st_batch, thresholds=thr,
-                                    tile=16, micro=1, interpret=True,
-                                    inner_scheme=p.inner_scheme,
-                                    inner_passes=p.batch_inner_passes))
-    out_x = np.asarray(p.batch_lws(A, thresholds=np.asarray(thr)))
+    if stage == "batch":
+        out_p = merge(*_gs(pair, p._st_batch, thr,
+                           inner_passes=p.batch_inner_passes))
+        out_x = np.asarray(p.batch_lws(A, thresholds=np.asarray(thr)))
+    else:
+        out_p = merge(*_gs(pair, p._st_nofuture, thr))
+        out_x = np.asarray(p.nofuture_lws(A, thresholds=np.asarray(thr)))
     np.testing.assert_allclose(out_p, out_x, atol=2e-3)
 
 
-def test_blocked_quality_and_magnitudes(golden):
-    if int(golden.Q) > 9:
-        pytest.skip("interpret runtime; micro>1 is a research knob")
-    p, A, pair = _setup(golden, max_t=80 if int(golden.Q) == 8 else None)
-    # alpha=1 keeps the threshold schedule dense from sweep one, so 15
-    # sweeps converge as far as 30 of the default alpha=100 schedule would
-    # (whose early sweeps are threshold-gated no-ops) — interpret runtime
+def test_kernel_quality_and_magnitudes(golden):
+    """Dense sweeps converge (+5 dB over the zero-phase input; Q=2 couples
+    every frame to its direct neighbour and is held to a weaker bar) and
+    magnitudes are preserved exactly."""
+    p, A, pair = _setup(golden)
     thr = jnp.asarray(get_thresholds(15, 1, 0.1, 1), dtype=jnp.float32)
-    out = merge(*packed_lws_sweeps(*pair, st=p._st_batch, thresholds=thr,
-                                   micro=2, interpret=True))
+    out = merge(*_gs(pair, p._st_batch, thr))
     c = float(np.asarray(p.get_consistency(out)))
     c0 = float(np.asarray(p.get_consistency(A)))
-    # blocked order trades some fidelity for speed; magnitudes always exact
-    # (+5 dB over the zero-phase input = solid convergence). Q=2 couples
-    # every frame to its direct neighbour, the case blocked updates are
-    # known to destabilise (the processor forces micro=1 there,
-    # processor.py) — hold it to a weaker bar
     assert c > c0 + (3.5 if int(golden.Q) == 2 else 5), (c, c0)
     np.testing.assert_allclose(np.abs(out), np.abs(A), atol=1e-4)
 
 
-def test_batched_grid(golden_q4):
-    p, A, _ = _setup(golden_q4)
+@pytest.mark.parametrize("kernel", ["gs", "online"])
+def test_batched_grid(golden_q4, kernel):
+    """One program per utterance: batched results equal single runs, and
+    the iteration is scale-invariant (thresholds scale with mean amp)."""
+    p, A, _ = _setup(golden_q4, max_t=40)
     Ab = np.stack([A, 0.5 * A, 2 * A])
-    pair = split(Ab, dtype=jnp.float32)
     thr = jnp.asarray(get_thresholds(2, 1, 0.1, 1), dtype=jnp.float32)
-    out = merge(*tiled_lws_sweeps(*pair, st=p._st_batch, thresholds=thr,
-                                  tile=32, interpret=True))
-    out0 = merge(*tiled_lws_sweeps(*split(A, dtype=jnp.float32), st=p._st_batch,
-                                   thresholds=thr, tile=32, interpret=True))
+    if kernel == "gs":
+        def run(x):
+            return merge(*_gs(split(x, dtype=jnp.float32), p._st_batch, thr))
+    else:
+        def run(x):
+            return merge(*_online(p, split(x, dtype=jnp.float32), thr))
+    out = run(Ab)
+    out0 = run(A)
     np.testing.assert_allclose(out[0], out0, atol=1e-6)
-    # scale-invariance of the phase iteration (thresholds scale with mean amp)
-    np.testing.assert_allclose(out[1], 0.5 * out0, atol=1e-5)
+    if kernel == "gs":
+        np.testing.assert_allclose(out[1], 0.5 * out0, atol=1e-5)
+    np.testing.assert_allclose(np.abs(out[2]), 2 * np.abs(A), atol=1e-4)
 
 
-def test_supported_budget_gates():
-    # resident packed kernel: whole (T, F) state must fit VMEM
-    assert packed_supported(628, 257, 4, 5)
-    assert not packed_supported(1100, 1025, 4, 5, pack=8)
-    assert not packed_supported(200_000, 2049, 4, 5)
-    # direct mode widens the two state planes to the extended width; when
-    # F+2L crosses a 128-lane tile boundary the fit is strictly tighter
-    assert packed_supported(2000, 120, 4, 5, pack=4)
-    assert not packed_supported(2000, 120, 4, 5, pack=4, window_carry="direct")
-    # tiled kernel streams time tiles: T-independent, F/Q/pack-gated
-    assert tiled_supported(257, 4, 5, pack=16)
-    assert tiled_supported(2049, 4, 5, pack=8)
-    assert not tiled_supported(2049, 16, 5, pack=16)
+def test_kernel_shape_rule():
+    """kernel_supported is the kernels' shape rule, and the processor's one
+    dispatch function applies it with the order and dtype conditions."""
+    assert kernel_supported(257, 4) and kernel_supported(2049, 4)
+    assert kernel_supported(1025, 8) and kernel_supported(MAX_BINS, MAX_Q)
+    assert not kernel_supported(MAX_BINS + 2, 4)
+    assert not kernel_supported(257, MAX_Q + 1)
+    assert LWS(512, 128, dtype=jnp.float32, interpret=True)._use_kernel(257)
+    assert not LWS(512, 128, dtype=jnp.float64,
+                   interpret=True)._use_kernel(257)
+    assert not LWS(512, 128, dtype=jnp.float32, order="jacobi",
+                   interpret=True)._use_kernel(257)
+    assert not LWS(256, 8, L=3, dtype=jnp.float32,
+                   interpret=True)._use_kernel(129)  # Q=32
+    assert not LWS(512, 128, dtype=jnp.float32, interpret=True,
+                   backend="xla")._use_kernel(257)
+    # on the CPU without interpret mode: the XLA path, never the kernel
+    assert not LWS(512, 128, dtype=jnp.float32)._use_kernel(257)
 
 
 def test_backend_validation(golden_q4):
     g = golden_q4
-    with pytest.raises(ValueError, match="pallas backend requested"):
-        p = LWS(int(g.fsize), int(g.fshift), L=int(g.L), dtype=jnp.float32,
-                backend="pallas")
-        A = np.abs(g.S).astype(np.complex64)
-        p.batch_lws(A, iterations=1)  # CPU backend -> pallas unavailable
+    A = np.abs(g.S).astype(np.complex64)
+    p = LWS(int(g.fsize), int(g.fshift), L=int(g.L), dtype=jnp.float32,
+            backend="gpu")
+    with pytest.raises(RuntimeError, match="needs a GPU"):
+        p.batch_lws(A, iterations=1)  # CPU backend -> no kernel, no silent fallback
+    with pytest.raises(ValueError, match="backend must be"):
+        LWS(512, 128, backend="pallas")
+    p64 = LWS(512, 128, dtype=jnp.float64, backend="gpu", interpret=True)
+    with pytest.raises(ValueError, match="float32"):
+        p64.batch_lws(A, iterations=1)
 
 
 def test_streamed_online_matches_scan(golden_q4):
-    """Streaming packed online == XLA scan semantics (quality; bitwise
-    divergence grows chaotically along the sequential pipeline in f32)."""
-    from lws_tpu.ops.pallas_packed import packed_rtisi_la
+    """Online kernel == XLA scan semantics (quality; bitwise divergence grows
+    chaotically along the sequential pipeline in f32)."""
     p, A, pair = _setup(golden_q4)
     thr = jnp.asarray(get_thresholds(4, 1, 0.1, 1), dtype=jnp.float32)
-    out_p = merge(*packed_rtisi_la(*pair, st_la=p._st_la, st_ai=p._st_nofuture,
-                                   st_af=p._st_af, thresholds=thr, interpret=True))
+    out_p = merge(*_online(p, pair, thr))
     out_x = merge(*p._online_xla(*pair, thresholds=thr))
     c_p = float(np.asarray(p.get_consistency(out_p)))
     c_x = float(np.asarray(p.get_consistency(out_x)))
@@ -137,19 +173,12 @@ def test_streamed_online_matches_scan(golden_q4):
 
 
 def test_streamed_online_batched(golden_q4):
-    from lws_tpu.ops.pallas_packed import packed_rtisi_la
     p, A, _ = _setup(golden_q4)
     Ab = np.stack([A, 0.3 * A])
-    pair = split(Ab, dtype=jnp.float32)
     thr = jnp.asarray(get_thresholds(2, 1, 0.1, 1), dtype=jnp.float32)
-    out = merge(*packed_rtisi_la(*pair, st_la=p._st_la, st_ai=p._st_nofuture,
-                                 st_af=p._st_af, thresholds=thr, interpret=True))
-    out0 = merge(*packed_rtisi_la(*split(A, dtype=jnp.float32), st_la=p._st_la,
-                                  st_ai=p._st_nofuture, st_af=p._st_af,
-                                  thresholds=thr, interpret=True))
+    out = merge(*_online(p, split(Ab, dtype=jnp.float32), thr))
+    out0 = merge(*_online(p, split(A, dtype=jnp.float32), thr))
     np.testing.assert_allclose(out[0], out0, atol=1e-6)
-    # scale-equivariance holds in exact arithmetic; in f32 the sequential
-    # pipeline amplifies rounding, so check magnitudes + quality instead
     np.testing.assert_allclose(np.abs(out[1]), 0.3 * np.abs(A), atol=1e-4)
     c = np.asarray(p.get_consistency((jnp.asarray(out.real, jnp.float32),
                                       jnp.asarray(out.imag, jnp.float32))))
@@ -157,11 +186,8 @@ def test_streamed_online_batched(golden_q4):
 
 
 def test_color_scheme_kernels_match_xla(golden):
-    """inner_scheme='color2x3' (the Q<=3 default): packed, tiled and online
-    kernels reproduce the XLA red-black in-frame order bit-for-bit (f64
-    interpret mode)."""
-    from lws_tpu.ops.pallas_packed import (packed_lws_sweeps, packed_rtisi_la,
-                                           tiled_lws_sweeps)
+    """inner_scheme='color2x3' (the Q<=3 default): batch and online kernels
+    reproduce the XLA red-black in-frame order (f64 interpret mode)."""
     if int(golden.Q) > 4:
         pytest.skip("covered by q2/q3/q4 geometries")
     p = LWS(int(golden.fsize), int(golden.fshift), L=int(golden.L),
@@ -170,17 +196,11 @@ def test_color_scheme_kernels_match_xla(golden):
     pair = split(A, dtype=jnp.float64)
     thr = jnp.asarray(get_thresholds(2, 100, 0.1, 1))
     out_x = p._batch_xla(*pair, thresholds=thr)
-    out_p = packed_lws_sweeps(*pair, st=p._st_batch, thresholds=thr, micro=1,
-                              inner_scheme="color2x3", interpret=True)
-    out_t = tiled_lws_sweeps(*pair, st=p._st_batch, thresholds=thr, micro=1,
-                             tile=16, inner_scheme="color2x3", interpret=True)
-    np.testing.assert_array_equal(np.asarray(out_p[0]), np.asarray(out_x[0]))
-    np.testing.assert_array_equal(np.asarray(out_t[0]), np.asarray(out_x[0]))
+    out_p = _gs(pair, p._st_batch, thr, inner_scheme="color2x3")
+    _close(out_p, out_x, 1e-8)
     thr_on = jnp.asarray(get_thresholds(2, 1, 0.1, 1))
     on_x = merge(*p._online_xla(*pair, thresholds=thr_on))
-    on_p = merge(*packed_rtisi_la(*pair, st_la=p._st_la, st_ai=p._st_nofuture,
-                                  st_af=p._st_af, thresholds=thr_on,
-                                  inner_scheme="color2x3", interpret=True))
+    on_p = merge(*_online(p, pair, thr_on, inner_scheme="color2x3"))
     # dense online runs amplify accumulation-order fp noise through the
     # sequential pipeline (see test_streamed_online_matches_scan); early
     # frames agree tightly, overall quality matches
@@ -190,34 +210,25 @@ def test_color_scheme_kernels_match_xla(golden):
     assert abs(c_p - c_x) < 0.3, (c_p, c_x)
 
 
-def test_packed_micro1_matches_xla_gs(golden_q4):
-    """Sublane-packed kernel, micro=1 == the XLA frame-GS order (float64:
-    the default batch path now runs 3 in-frame re-passes at Q=4, whose
-    roundoff-level order differences the iteration amplifies in f32 —
-    the f64 comparison pins the order equivalence itself)."""
-    from lws_tpu.ops.pallas_packed import packed_lws_sweeps
+def test_kernel_f64_matches_xla_gs(golden_q4):
+    """float64: the kernel's order equals the XLA frame-GS order, with the
+    default 3 in-frame re-passes at Q=4, on a batch of 3."""
     p, A, _ = _setup(golden_q4, dtype=jnp.float64)
-    Ab = np.stack([A * (0.5 + 0.5 * i) for i in range(3)])  # B=3, pads to 4
+    Ab = np.stack([A * (0.5 + 0.5 * i) for i in range(3)])
     pair = split(Ab, dtype=jnp.float64)
     thr = jnp.asarray(get_thresholds(5, 1, 0.1, 1), dtype=jnp.float64)
-    out_p = merge(*packed_lws_sweeps(*pair, st=p._st_batch, thresholds=thr,
-                                     micro=1, interpret=True,
-                                     inner_scheme=p.inner_scheme,
-                                     inner_passes=p.batch_inner_passes))
+    out_p = merge(*_gs(pair, p._st_batch, thr,
+                       inner_passes=p.batch_inner_passes))
     out_x = np.asarray(p.batch_lws(Ab, thresholds=np.asarray(thr)))
-    np.testing.assert_allclose(out_p, out_x, atol=1e-6)
-    close = np.isclose(out_p, out_x, rtol=1e-8, atol=1e-8)
-    assert close.mean() > 0.99
+    np.testing.assert_allclose(out_p, out_x, atol=1e-9)
 
 
-def test_packed_online_quality(golden_q4):
-    from lws_tpu.ops.pallas_packed import packed_rtisi_la
+def test_online_kernel_quality(golden_q4):
     p, A, _ = _setup(golden_q4)
     Ab = np.stack([A, A * 0.7])
     pair = split(Ab, dtype=jnp.float32)
     thr = jnp.asarray(get_thresholds(3, 1, 0.1, 1), dtype=jnp.float32)
-    out = merge(*packed_rtisi_la(*pair, st_la=p._st_la, st_ai=p._st_nofuture,
-                                 st_af=p._st_af, thresholds=thr, interpret=True))
+    out = merge(*_online(p, pair, thr))
     out_x = merge(*p._online_xla(*pair, thresholds=thr))
     c = np.asarray(p.get_consistency((jnp.asarray(out.real, jnp.float32),
                                       jnp.asarray(out.imag, jnp.float32))))
@@ -226,86 +237,67 @@ def test_packed_online_quality(golden_q4):
     np.testing.assert_allclose(np.abs(out), np.abs(Ab), atol=1e-4)
 
 
-def test_packed_nofuture_exact(golden_q4):
-    """No-future via the packed kernel: strictly-past taps, bit-equivalent
-    to the reference raster order."""
-    from lws_tpu.ops.pallas_packed import packed_lws_sweeps
+def test_nofuture_kernel_exact(golden_q4):
+    """No-future via the kernel: strictly-past taps, matching the reference
+    golden of one no-future iteration."""
     p, A, pair = _setup(golden_q4)
     thr = jnp.asarray(get_thresholds(1, 1, 0.1, 1), dtype=jnp.float32)
-    out = merge(*packed_lws_sweeps(*pair, st=p._st_nofuture, thresholds=thr,
-                                   micro=1, interpret=True))
+    out = merge(*_gs(pair, p._st_nofuture, thr))
     ref = golden_q4.nofuture_i1_anyq.astype(np.complex64)
     np.testing.assert_allclose(out, ref, rtol=2e-2, atol=2e-2)
 
 
-def test_tiled_equals_resident_packed(golden_q4):
-    """The time-tiled kernel matches the fully-resident packed kernel at any
-    tile size: same frame order, tiny fp-ordering differences only (the
-    resident micro=1 path uses a register window, the tiled path per-group
-    patch loads)."""
-    from lws_tpu.ops.pallas_packed import packed_lws_sweeps, tiled_lws_sweeps
-    p, A, _ = _setup(golden_q4)
-    Ab = np.stack([A, 0.6 * A])
-    pair = split(Ab, dtype=jnp.float32)
-    thr = jnp.asarray(get_thresholds(5, 1, 0.1, 1), dtype=jnp.float32)
-    ref = merge(*packed_lws_sweeps(*pair, st=p._st_batch, thresholds=thr,
-                                   micro=1, interpret=True))
-    out16 = merge(*tiled_lws_sweeps(*pair, st=p._st_batch, thresholds=thr,
-                                    micro=1, tile=16, interpret=True))
-    out48 = merge(*tiled_lws_sweeps(*pair, st=p._st_batch, thresholds=thr,
-                                    micro=1, tile=48, interpret=True))
-    np.testing.assert_array_equal(out16, out48)  # tiling is exactly invariant
-    np.testing.assert_allclose(out16, ref, atol=2e-3)
+def test_kernel_leading_dims(golden_q4):
+    """(..., T, F) inputs: any leading batch shape runs as one flat grid."""
+    p, A, _ = _setup(golden_q4, dtype=jnp.float64, max_t=24)
+    Ab = np.stack([A * (1 + 0.1 * i) for i in range(6)]).reshape(2, 3, 24, -1)
+    thr = jnp.asarray(get_thresholds(2, 1, 0.1, 1))
+    pair = split(Ab, dtype=jnp.float64)
+    got = _gs(pair, p._st_batch, thr)
+    flat = _gs(tuple(x.reshape(6, 24, -1) for x in pair), p._st_batch, thr)
+    assert got[0].shape == Ab.shape
+    _eq((got[0].reshape(6, 24, -1), got[1].reshape(6, 24, -1)), flat)
 
 
-@pytest.mark.parametrize("carry", ["stack", "direct"])
-def test_packed_bf16_storage(golden_q4, carry):
-    """Opt-in bf16 storage in both window representations (direct is the
-    auto planner's choice and re-reads bf16-rounded state within the
-    sweep — measured quality parity with f32 on the HBM-bound bench
-    configs, PERF.md): magnitudes within bf16 quantisation, quality within
-    ~2.5 dB of f32."""
-    from lws_tpu.ops.pallas_packed import packed_lws_sweeps
-    p, A, pair = _setup(golden_q4)
-    thr = jnp.asarray(get_thresholds(15, 100, 0.1, 1), dtype=jnp.float32)
-    out = merge(*packed_lws_sweeps(*pair, st=p._st_batch, thresholds=thr,
-                                   micro=1, pack=8, storage=jnp.bfloat16,
-                                   window_carry=carry, interpret=True))
-    c = float(np.asarray(p.get_consistency((jnp.asarray(out.real, jnp.float32),
-                                            jnp.asarray(out.imag, jnp.float32)))))
-    f32 = merge(*packed_lws_sweeps(*pair, st=p._st_batch, thresholds=thr,
-                                   micro=1, interpret=True))
-    c32 = float(np.asarray(p.get_consistency((jnp.asarray(f32.real, jnp.float32),
-                                              jnp.asarray(f32.imag, jnp.float32)))))
-    assert c > c32 - 2.5, (c, c32)
-    # bf16 relative quantisation: compare in relative terms (large bins)
-    rel = np.abs(np.abs(out) - np.abs(A)) / (np.abs(A) + 1e-3)
-    assert np.quantile(rel, 0.999) < 1e-2, np.quantile(rel, 0.999)
+@pytest.mark.parametrize("case", ["summarized", "fractional"])
+def test_weight_table_period(case):
+    """The kernels read each tap's weights from a table indexed by bin mod
+    period: summarised weights repeat every Q bins; fractional-Q weights are
+    kept per bin. The table reproduces the dense stencil exactly."""
+    if case == "summarized":
+        p, want = LWS(512, 128), 4
+    else:
+        p, want = LWS(64, 24), 33  # Q = 8/3: per-bin weight rows
+    period, tr, ti = weight_table(p._st_batch)
+    assert period == want
+    n = np.arange(p._st_batch.n_bins)
+    np.testing.assert_array_equal(tr[..., n % period],
+                                  np.asarray(p._st_batch.Wr))
+    np.testing.assert_array_equal(ti[..., n % period],
+                                  np.asarray(p._st_batch.Wi))
 
 
-def test_segmented_matches_tiled_single_segment(golden_q4):
-    """segments=1 must degenerate to the plain tiled kernel bit-for-bit
-    (the halo/mean-override plumbing is exact)."""
-    from lws_tpu.ops.pallas_packed import segmented_lws_sweeps, tiled_lws_sweeps
-    p, A, pair = _setup(golden_q4)
+def test_segmented_matches_kernel_single_segment(golden_q4):
+    """segments=1 degenerates to the plain kernel bit-for-bit (the
+    halo/mean-override plumbing is exact)."""
+    p, A, pair = _setup(golden_q4, max_t=40)
     thr = jnp.asarray(get_thresholds(4, 100, 0.1, 1), dtype=jnp.float32)
-    ref = tiled_lws_sweeps(*pair, st=p._st_batch, thresholds=thr, interpret=True)
-    out = segmented_lws_sweeps(*pair, st=p._st_batch, thresholds=thr,
-                               segments=1, interpret=True)
-    np.testing.assert_allclose(np.asarray(out[0]), np.asarray(ref[0]), atol=1e-12)
-    np.testing.assert_allclose(np.asarray(out[1]), np.asarray(ref[1]), atol=1e-12)
+    ref = _gs(pair, p._st_batch, thr)
+    out = segmented_gs_sweeps(*pair, st=p._st_batch, thresholds=thr,
+                              segments=1, interpret=True)
+    _eq(out, ref)
 
 
-def test_segmented_quality_and_magnitudes(golden_q4):
+@pytest.mark.parametrize("segments", [2, 4])
+def test_segmented_quality_and_magnitudes(golden_q4, segments):
     """Multi-segment (block-Jacobi seams): quality-equivalent to the
-    unsegmented sweep, magnitudes exactly preserved, T padding round-trips."""
-    from lws_tpu.ops.pallas_packed import segmented_lws_sweeps, tiled_lws_sweeps
-    p, A, pair = _setup(golden_q4)  # T=66, not divisible by 4
+    unsegmented sweep, magnitudes exactly preserved, T padding round-trips
+    (T=66 is not a multiple of 4)."""
+    p, A, pair = _setup(golden_q4)
     thr = jnp.asarray(get_thresholds(15, 100, 0.1, 1), dtype=jnp.float32)
-    ref = merge(*tiled_lws_sweeps(*pair, st=p._st_batch, thresholds=thr,
-                                  interpret=True))
-    out = merge(*segmented_lws_sweeps(*pair, st=p._st_batch, thresholds=thr,
-                                      segments=4, interpret=True))
+    ref = merge(*_gs(pair, p._st_batch, thr))
+    out = merge(*segmented_gs_sweeps(*pair, st=p._st_batch, thresholds=thr,
+                                     segments=segments, interpret=True))
     assert out.shape == A.shape
     c_r = float(np.asarray(p.get_consistency(ref)))
     c_s = float(np.asarray(p.get_consistency(out)))
@@ -314,52 +306,42 @@ def test_segmented_quality_and_magnitudes(golden_q4):
 
 
 def test_online_chunk_matches_offline_exact(golden_q4):
-    """Chunked streaming online kernel (online_chunk with carried state,
-    fixed mean) == offline packed_rtisi_la, bit-for-bit at equal (eager)
-    compilation: any chunking of the frame stream reproduces the offline
-    register-window state exactly. Matches lwslib.cpp:1424-1492 semantics
-    streamed through StreamingLWS.push_block."""
-    from lws_tpu.ops.pallas_packed import (online_chunk, online_chunk_init,
-                                           packed_rtisi_la)
+    """Carried-state streaming entry (online_chunk, fixed mean) == offline
+    online_sweeps: any chunking of the frame stream reproduces the offline
+    pipeline (lwslib.cpp:1424-1492 semantics streamed through
+    StreamingLWS.push_block)."""
     p, A, pair = _setup(golden_q4, dtype=jnp.float64)
     T, F = A.shape[-2:]
     LA = p.look_ahead
     thr = jnp.asarray(get_thresholds(2, p.online_alpha, p.online_beta,
                                      p.online_gamma), dtype=jnp.float64)
-    sr, si = pair
-    sr, si = sr[None] if sr.ndim == 2 else sr, si[None] if si.ndim == 2 else si
-    osr, osi = packed_rtisi_la(sr, si, p._st_la, p._st_nofuture, p._st_af,
-                               thr, interpret=True)
+    sr, si = pair[0][None], pair[1][None]
+    osr, osi = _online(p, (sr, si), thr)
     mean = jnp.mean(jnp.sqrt(sr * sr + si * si), axis=(-2, -1))
 
-    state = online_chunk_init(sr.shape[0], p._st_la, p._st_af,
-                              sr[:, 0], si[:, 0])
+    state = online_chunk_init(sr[:, 0], si[:, 0], p._st_la, p._st_af)
     outs = []
     for a, b in [(0, 17), (17, 18), (18, T)]:
-        m = jnp.broadcast_to(mean[:, None], (sr.shape[0], b - a))
+        m = jnp.broadcast_to(mean[:, None], (1, b - a))
         cr, ci, state = online_chunk(sr[:, a:b], si[:, a:b], state, m,
                                      p._st_la, p._st_nofuture, p._st_af, thr,
-                                     interpret=True)
+                                     a, interpret=True)
         outs.append((cr, ci))
-    z = jnp.zeros((sr.shape[0], LA, F), dtype=sr.dtype)
-    m = jnp.broadcast_to(mean[:, None], (sr.shape[0], LA))
+    z = jnp.zeros((1, LA, F), dtype=sr.dtype)
+    m = jnp.broadcast_to(mean[:, None], (1, LA))
     cr, ci, state = online_chunk(z, z, state, m, p._st_la, p._st_nofuture,
-                                 p._st_af, thr, n_live=0, interpret=True)
+                                 p._st_af, thr, T, n_live=0, interpret=True)
     outs.append((cr, ci))
     all_r = jnp.concatenate([o[0] for o in outs], axis=1)[:, LA:LA + T]
     all_i = jnp.concatenate([o[1] for o in outs], axis=1)[:, LA:LA + T]
-    np.testing.assert_array_equal(np.asarray(all_r), np.asarray(osr))
-    np.testing.assert_array_equal(np.asarray(all_i), np.asarray(osi))
+    _close((all_r, all_i), (osr, osi), 1e-12)
 
 
-def test_large_q_tiled_matches_xla_gs():
-    """Q=12 (beyond the old Q<=9 cap): the tiled kernel matches the XLA
-    frame-GS order bit-for-bit in f64 interpret mode; on-chip validation of
-    Q=12/Q=16 is in tools/tpu_smoke.py territory (compiles and converges)."""
-    from lws_tpu.core.batch import lws_sweeps
-    from lws_tpu.ops.pallas_packed import tiled_lws_sweeps
-    proc = LWS(1536, 128, L=3, dtype=jnp.float64)
-    assert proc._Qi == 12
+def test_large_q_kernel_matches_xla_gs():
+    """Q=MAX_Q (8): the kernel matches the XLA frame-GS order in f64
+    interpret mode."""
+    proc = LWS(1024, 128, L=3, dtype=jnp.float64)
+    assert proc._Qi == MAX_Q
     rng = np.random.default_rng(7)
     F = proc.fftsize // 2 + 1
     amp = np.abs(rng.standard_normal((2, 30, F)))
@@ -367,465 +349,252 @@ def test_large_q_tiled_matches_xla_gs():
     si = jnp.zeros_like(sr)
     thr = jnp.asarray(get_thresholds(2, 100, 0.1, 1), dtype=jnp.float64)
     ref = lws_sweeps(sr, si, st=proc._st_batch, thresholds=thr, order="gs")
-    out = tiled_lws_sweeps(sr, si, st=proc._st_batch, thresholds=thr,
-                           micro=1, pack=8, interpret=True)
-    np.testing.assert_array_equal(np.asarray(out[0]), np.asarray(ref[0]))
-    np.testing.assert_array_equal(np.asarray(out[1]), np.asarray(ref[1]))
+    _close(_gs((sr, si), proc._st_batch, thr), ref, 1e-8)
 
 
-def test_tiled_supported_and_max_q_bounds():
-    """VMEM-fit predicate: big-Q small-F fits, big-Q big-F does not (the
-    processor then takes the XLA fallback instead of a compiler OOM), and
-    geometries beyond MAX_Q are refused by the kernels."""
-    from lws_tpu.ops.pallas_packed import (MAX_Q, tiled_lws_sweeps,
-                                           tiled_supported)
-    assert tiled_supported(257, 4, 5)
-    assert tiled_supported(1025, 16, 2)        # validated on-chip
-    assert not tiled_supported(2049, 16, 2)    # OOMs scoped VMEM on-chip
-    proc = LWS(512, 128, L=5, dtype=jnp.float64)
-    st = proc._st_batch
-
-    class FakeSt:
-        Q, L, nz = MAX_Q + 1, st.L, st.nz
-
-    sr = jnp.zeros((1, 8, 257))
+def test_kernel_rejects_beyond_shape_rule():
+    """Geometries outside kernel_supported are refused by the kernels
+    themselves (the processor routes them to XLA before that)."""
+    proc = LWS(256, 8, L=3, dtype=jnp.float64)  # Q=32 > MAX_Q
+    sr = jnp.zeros((1, 40, 129))
     thr = jnp.ones((1,))
-    with pytest.raises(ValueError, match="supports Q <="):
-        tiled_lws_sweeps(sr, sr, st=FakeSt(), thresholds=thr, interpret=True)
+    with pytest.raises(ValueError, match="Q <="):
+        gs_sweeps(sr, sr, proc._st_batch, thr, interpret=True)
+    with pytest.raises(ValueError, match="Q <="):
+        online_sweeps(sr, sr, proc._st_la, proc._st_nofuture, proc._st_af,
+                      thr, interpret=True)
 
 
-def test_pack_downshift_and_bf16_unlock():
-    """f32 pack=16 at F=1025/Q=8 can NOT compile at any tile (the Mosaic
-    stack for the live register window alone nearly fills scoped VMEM —
-    measured on-chip, PERF.md): the gate must refuse it and the processor
-    must downshift to pack=8 rather than crash. bf16 storage halves the
-    plane rows, so the same geometry fits at pack=16 (validated on-chip)."""
-    from lws_tpu.ops.pallas_packed import tiled_supported
-    assert not tiled_supported(1025, 8, 5, pack=16)
-    assert tiled_supported(1025, 8, 5, pack=8)
-    assert tiled_supported(1025, 8, 5, pack=16, itemsize=2)
-
-    proc = LWS(2048, 256, L=5, pallas_pack=16, dtype=jnp.float32,
-               pallas_fold=1)
-    pair = (jnp.zeros((32, 64, 1025)), jnp.zeros((32, 64, 1025)))
-    # auto window mode: the carried window cannot fit pack=16 here, but the
-    # direct representation can — the planner keeps the wide pack via direct
-    assert proc._plan_tiled(pair) == (16, 1, "direct", 1)
-    # pinned to the carried representation, the pack must downshift
-    proc_stack = LWS(2048, 256, L=5, pallas_pack=16, dtype=jnp.float32,
-                     pallas_window="stack")
-    assert proc_stack._plan_tiled(pair) == (8, 1, "stack", 1)
-    proc_bf16 = LWS(2048, 256, L=5, pallas_pack=16, dtype=jnp.float32,
-                    pallas_storage="bfloat16", pallas_fold=1)
-    assert proc_bf16._eff_pack(pair) == 16
-    # small batches: the kernel clamps P to the 8-row sublane minimum, so
-    # the gate approves the configured pack=16 against the clamped P=8
-    assert tiled_supported(1025, 8, 5, pack=16, B=2)
-    small = (jnp.zeros((2, 64, 1025)), jnp.zeros((2, 64, 1025)))
-    assert proc._plan_tiled(small) == (16, 1, "direct", 1)
-
-
-def test_plan_auto_fold():
-    """The default "auto" fold takes the deepest fitting lane fold: the
-    bench batch geometry folds 4 groups at pack 8 (direct, and rows under
-    the serving unroll), F=1025 folds 2 at pack 8, while single-group,
-    color-scheme, segmented and B=1 plans stay unfolded."""
-    import jax
+def test_auto_segments_rule():
+    """The segment count: up to 8 segments of >= 2048 frames while the
+    batch has fewer than 32 programs' worth of utterances; the benchmark
+    geometries keep their counts (batch 1, vocoder 1, long-form 8)."""
     proc = LWS(512, 128)
-    pair = (jnp.zeros((32, 628, 257), jnp.float32),) * 2
-    assert proc._plan_tiled(pair) == (8, 1, "direct", 4)
-    serving = LWS(512, 128, inner_passes=1, pallas_unroll=-1,
-                  pallas_window="rows")
-    assert serving._plan_tiled(pair) == (8, 1, "rows", 4)
-    # wide F: the tile saving (5.6% at F=1025 fold 2) is below the
-    # measured profitability line — auto stays unfolded (a pinned
-    # pallas_fold=2 still folds); the vocoder config measured 254 -> 239
-    # audio-s/s under a forced fold (PERF.md round-5)
-    wide = LWS(2048, 256, L=5, pallas_pack=16, dtype=jnp.float32)
-    pair2 = (jnp.zeros((32, 64, 1025)),) * 2
-    assert wide._plan_tiled(pair2) == (16, 1, "direct", 1)
-    wide_pinned = LWS(2048, 256, L=5, pallas_pack=16, dtype=jnp.float32,
-                      pallas_fold=2)
-    assert wide_pinned._plan_tiled(pair2) == (8, 1, "direct", 2)
-    # Q=2 resolves to the color scheme -> fold disengages
-    q2 = LWS(512, 256)
-    assert q2._plan_tiled(pair)[3] == 1
-    # B=1 has one group: nothing to fold
-    single = (jnp.zeros((1, 628, 257), jnp.float32),) * 2
-    assert proc._plan_tiled(single) == (32, 1, "direct", 1)
-    # long underfilled workloads keep segmentation (fold is plain-kernel)
-    sds = jax.ShapeDtypeStruct((2, 16384, 1025), jnp.float32)
-    plan = wide._plan_tiled((sds, sds))
-    assert plan[1] > 1 and plan[3] == 1
+    assert proc._auto_segments(32, 628) == 1
+    assert proc._auto_segments(1024, 216) == 1
+    assert proc._auto_segments(1, 29532) == 8
+    assert proc._auto_segments(2, 16384) == 8
+    assert proc._auto_segments(4, 16384) == 8
+    assert proc._auto_segments(8, 16384) == 4
+    assert proc._auto_segments(16, 16384) == 2
+    assert proc._auto_segments(1, 4096) == 2
+    assert proc._auto_segments(1, 2000) == 1
+    assert LWS(512, 128, auto_segment=False)._auto_segments(1, 29532) == 1
 
 
-def test_plan_tiled_accounts_for_segmentation():
-    """Auto-segmentation multiplies the effective virtual-utterance batch,
-    which raises the kernel's internal sublane pack: the launch plan must
-    evaluate the VMEM fit at the POST-segmentation batch. A B=2 long-form
-    batch at F=1025/Q=8/pack=16 used to pass the gate at the clamped P=8 and
-    then crash the segmented kernel launch at P=16; the plan now shrinks the
-    segment count until the fit holds."""
-    import jax
-    from lws_tpu.ops.pallas_packed import tiled_supported
-    proc = LWS(2048, 256, L=5, pallas_pack=16, dtype=jnp.float32)
-    sds = jax.ShapeDtypeStruct((2, 16384, 1025), jnp.float32)
-    plan = proc._plan_tiled((sds, sds))
-    assert plan is not None
-    pk, S, w, fe = plan
-    assert S > 1  # the long underfilled workload still gets segmentation
-    assert fe == 1  # the segmented path never folds
-    # the plan must be launchable: the fit holds at the effective batch and
-    # window mode the segmented kernel will actually run
-    assert tiled_supported(1025, proc._Qi, proc.L, pack=pk, B=2 * S,
-                           window_carry=w)
-    # a short workload keeps the unsegmented exact order
-    small = jax.ShapeDtypeStruct((2, 64, 1025), jnp.float32)
-    assert proc._plan_tiled((small, small)) == (16, 1, "direct", 1)
+def _spy(proc, monkeypatch):
+    calls = []
+    for name in ("_batch_gpu", "_batch_seg", "_batch_xla", "_online_gpu",
+                 "_online_xla"):
+        real = getattr(proc, name)
+
+        def wrapped(*a, _n=name, _r=real, **kw):
+            calls.append((_n, kw.get("segments")))
+            return _r(*a, **kw)
+        monkeypatch.setattr(proc, name, wrapped)
+    return calls
 
 
-def test_online_gate_independent_of_tiled_plan(monkeypatch):
-    """The online kernel's routing must not be gated on the batch tiled
-    kernel's VMEM plan: its register window scales with the 2+LA weight
-    sets, not the batch kernel's time tiles. F=2049/Q=8/L=5 fits the
-    streaming online kernel (at look_ahead=1: 2+LA weight sets) but no tiled
-    f32 pack (regression: online silently fell back to the frame-sequential
-    XLA scan on TPU there, and backend='pallas' raised for a config the
-    online kernel handles)."""
-    import jax
-    # pallas_window="stack" pins the carried mode, which cannot fit this
-    # F*Q at any pack (auto mode would fall through to "direct")
-    proc = LWS(4096, 512, L=5, dtype=jnp.float32, look_ahead=1,
-               pallas_window="stack")
-    sds = jax.ShapeDtypeStruct((1, 64, 2049), jnp.float32)
-    assert proc._plan_tiled((sds, sds)) is None  # tiled cannot fit this F*Q
-    assert proc._online_ok((sds, sds))           # the online kernel can
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    assert proc._pallas_base_ok()                # so _online_fn routes Pallas
+def test_dispatch_routes_kernel_and_xla(monkeypatch):
+    """_use_kernel decides every stage: the kernel where it applies, the
+    XLA scan for backend='xla'."""
+    pair = (jnp.ones((2, 20, 257), jnp.float32),) * 2
+    thr = jnp.asarray(get_thresholds(1, 1, 0.1, 1), jnp.float32)
+    p = LWS(512, 128, dtype=jnp.float32, interpret=True)
+    calls = _spy(p, monkeypatch)
+    p._batch_fn(*pair, thresholds=thr)
+    p._online_fn(*pair, thresholds=thr)
+    assert calls == [("_batch_gpu", None), ("_online_gpu", None)]
+    px = LWS(512, 128, dtype=jnp.float32, interpret=True, backend="xla")
+    calls = _spy(px, monkeypatch)
+    px._batch_fn(*pair, thresholds=thr)
+    px._online_fn(*pair, thresholds=thr)
+    assert calls == [("_batch_xla", None), ("_online_xla", None)]
 
 
-def test_online_xla_fallback_warns_on_tpu(monkeypatch):
-    """When the online kernel cannot run a config on TPU (weight sets exceed
-    VMEM / look_ahead > 8), the silent fallback is the frame-sequential XLA
-    scan — the path the codebase documents as pathologically slow to
-    compile; the user must be warned (mirrors _xla_fallback's warning for
-    the batch stages)."""
-    import warnings as _w
-    import jax
-    proc = LWS(4096, 512, L=5, dtype=jnp.float32, look_ahead=3)
-    sds = (jnp.zeros((1, 8, 2049)), jnp.zeros((1, 8, 2049)))
-    assert not proc._online_ok(sds)  # LA=3 weight sets exceed VMEM at F=2049
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    called = {}
-    monkeypatch.setattr(proc, "_online_xla",
-                        lambda sr, si, thresholds: called.setdefault("ok", (sr, si)))
-    with pytest.warns(UserWarning, match="frame-sequential XLA scan"):
-        proc._online_fn(*sds, thresholds=jnp.ones((1,)))
-    assert "ok" in called
-    # an explicit backend="xla" is honoured silently
-    proc_x = LWS(4096, 512, L=5, dtype=jnp.float32, look_ahead=3, backend="xla")
-    monkeypatch.setattr(proc_x, "_online_xla",
-                        lambda sr, si, thresholds: (sr, si))
-    with _w.catch_warnings():
-        _w.simplefilter("error")
-        proc_x._online_fn(*sds, thresholds=jnp.ones((1,)))
+def test_segmented_dispatch_long_small_batch(monkeypatch):
+    """A long small batch on the kernel path runs the segmented kernel with
+    the _auto_segments count; auto_segment=False keeps the plain kernel."""
+    p = LWS(512, 128, dtype=jnp.float32, interpret=True)
+    calls = []
+    monkeypatch.setattr(p, "_batch_seg", lambda sr, si, thresholds, **kw:
+                        calls.append(("seg", kw["segments"])) or (sr, si))
+    monkeypatch.setattr(p, "_batch_gpu", lambda sr, si, thresholds, **kw:
+                        calls.append(("gpu", None)) or (sr, si))
+    long_pair = (jnp.zeros((1, 4200, 257), jnp.float32),) * 2
+    p._batch_fn(*long_pair, thresholds=jnp.ones((1,)))
+    assert calls == [("seg", 2)]
+    p.auto_segment = False
+    p._batch_fn(*long_pair, thresholds=jnp.ones((1,)))
+    assert calls[-1] == ("gpu", None)
 
 
-def test_frame_unroll_is_bit_neutral(golden_q4):
-    """frame_unroll is a pure compiler hint: identical output at any level,
-    on all three batch-path kernels (packed, tiled, segmented)."""
-    from lws_tpu.ops.pallas_packed import (packed_lws_sweeps,
-                                           segmented_lws_sweeps,
-                                           tiled_lws_sweeps)
-
-    p, A, pair = _setup(golden_q4, max_t=40)
-    thr = jnp.asarray(get_thresholds(2, 100, 0.1, 1), dtype=jnp.float32)
-    seg = functools.partial(segmented_lws_sweeps, segments=2)
-    for fn in (tiled_lws_sweeps, packed_lws_sweeps, seg):
-        base = fn(*pair, st=p._st_batch, thresholds=thr, pack=2,
-                  interpret=True)
-        for u in (2, -1):  # clamped-to-full and explicit full unroll
-            got = fn(*pair, st=p._st_batch, thresholds=thr, pack=2,
-                     interpret=True, frame_unroll=u)
-            np.testing.assert_array_equal(np.asarray(got[0]), np.asarray(base[0]))
-            np.testing.assert_array_equal(np.asarray(got[1]), np.asarray(base[1]))
+def test_online_dispatch_uses_kernel_rule(monkeypatch):
+    """The online stage follows the same rule as the sweeps: F=2049 / Q=8
+    takes the kernel (no separate fit gate), Q beyond MAX_Q takes XLA."""
+    p = LWS(4096, 512, L=5, dtype=jnp.float32, look_ahead=1, interpret=True)
+    assert p._use_kernel(2049)
+    calls = []
+    monkeypatch.setattr(p, "_online_gpu", lambda sr, si, thresholds:
+                        calls.append("gpu") or (sr, si))
+    pair = (jnp.zeros((1, 8, 2049)),) * 2
+    p._online_fn(*pair, thresholds=jnp.ones((1,)))
+    assert calls == ["gpu"]
 
 
-def test_pallas_unroll_processor_plumbing(monkeypatch):
-    """LWS(pallas_unroll=k, pallas_window=...) reaches every tiled/segmented
-    kernel partial."""
-    from lws_tpu import LWS
+def test_xla_path_is_silent(monkeypatch):
+    """A configuration outside the kernels' shape rule runs the exact XLA
+    scan on a GPU without warnings (no order substitution)."""
+    import lws_jax.device as dev
+    monkeypatch.setattr(dev, "gpu_available", lambda: True)
+    p = LWS(144, 16, L=1, dtype=jnp.float32)  # Q=9
+    assert p._Qi == MAX_Q + 1 and not p._use_kernel(73)
+    sr = jnp.asarray(np.abs(np.random.default_rng(0).standard_normal(
+        (1, 20, 73))), jnp.float32)
+    thr = jnp.asarray(get_thresholds(1, 1, 0.1, 1), jnp.float32)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        out = p._batch_fn(sr, jnp.zeros_like(sr), thresholds=thr)
+    ref = p._batch_xla(sr, jnp.zeros_like(sr), thresholds=thr)
+    _eq(out, ref)
 
-    proc = LWS(512, 128, dtype=jnp.float32, pallas_unroll=4,
-               pallas_window="rows")
-    assert proc.pallas_unroll == 4
-    for fn in (proc._batch_tiled, proc._nofuture_tiled,
-               proc._batch_seg, proc._nofuture_seg):
-        # jax.jit wraps functools.partial; the hint must be bound there
-        assert fn.__wrapped__.keywords["frame_unroll"] == 4
-        # window_carry is a call-time static arg since the auto planner:
-        # an explicit pallas_window pins the candidate list to that mode
-        assert "window_carry" not in fn.__wrapped__.keywords
-    assert proc._window_modes() == ("rows",)
-    auto = LWS(512, 128, dtype=jnp.float32)
-    assert auto._window_modes() == ("direct", "stack")
-    # bf16 storage also prefers direct (measured better on quality AND
-    # speed than stack+bf16, PERF.md); tap_chunks pins stack
-    bf16 = LWS(512, 128, dtype=jnp.float32, pallas_storage="bfloat16")
-    assert bf16._window_modes() == ("direct", "stack")
-    tc = LWS(512, 128, dtype=jnp.float32, pallas_tap_chunks=2)
-    assert tc._window_modes() == ("stack",)
-    # pack ladder: halving from the configured ceiling to the 8-row minimum
-    assert auto._pack_ladder() == (32, 16, 8)
-    assert LWS(512, 128, pallas_pack=8)._pack_ladder() == (8,)
-    # full unroll caps the ladder at 16 (unrolled bodies inflate the scoped
-    # stack beyond the unroll=1-calibrated VMEM model — measured OOM at p32)
-    serving = LWS(512, 128, pallas_unroll=-1, pallas_window="rows")
-    assert serving._pack_ladder() == (16, 8)
-    with pytest.raises(ValueError, match="pallas_window"):
-        LWS(512, 128, pallas_window="circular")
+
+def test_processor_kernel_partials():
+    """The processor's kernel partials carry its schedule: batch in-frame
+    passes and scheme, the online scheme, and the interpret flag."""
+    p = LWS(512, 128, dtype=jnp.float32, interpret=True)
+    kw = p._batch_gpu.__wrapped__.keywords
+    assert kw["inner_passes"] == p.batch_inner_passes == 3
+    assert kw["inner_scheme"] == "jacobi" and kw["interpret"] is True
+    assert p._online_gpu.__wrapped__.keywords["inner_passes"] == 1
+    q2 = LWS(512, 256, dtype=jnp.float32)
+    assert q2._batch_gpu.__wrapped__.keywords["inner_scheme"] == "color2x3"
+    assert q2._batch_gpu.__wrapped__.keywords["interpret"] is False
 
 
 @pytest.mark.parametrize("scheme", ["jacobi", "color2x3"])
-def test_rows_carry_is_bit_neutral(golden_q4, scheme):
-    """window_carry='rows' (tuple carry, SSA-renamed shift) is bit-identical
-    to the stacked-window formulation on all three batch-path kernels, with
-    and without frame unrolling, for both inner schemes."""
-    from lws_tpu.ops.pallas_packed import (packed_lws_sweeps,
-                                           segmented_lws_sweeps,
-                                           tiled_lws_sweeps)
-
-    p, A, pair = _setup(golden_q4, max_t=40)
-    thr = jnp.asarray(get_thresholds(2, 100, 0.1, 1), dtype=jnp.float32)
-    seg = functools.partial(segmented_lws_sweeps, segments=2)
-    for fn in (tiled_lws_sweeps, packed_lws_sweeps, seg):
-        base = fn(*pair, st=p._st_batch, thresholds=thr, pack=2,
-                  inner_scheme=scheme, interpret=True)
-        for u in (1, 7):
-            got = fn(*pair, st=p._st_batch, thresholds=thr, pack=2,
-                     inner_scheme=scheme, interpret=True,
-                     window_carry="rows", frame_unroll=u)
-            np.testing.assert_array_equal(np.asarray(got[0]), np.asarray(base[0]))
-            np.testing.assert_array_equal(np.asarray(got[1]), np.asarray(base[1]))
-
-
-def test_lane_fold_is_bit_neutral(golden_q4):
-    """lane_fold (groups packed side by side in the lane axis, dead 2L
-    straddles, per-group conjugate halos) is bit-identical to the unfolded
-    kernel in every window representation, at inner_passes 1 and 3, for
-    batch and no-future stencils — the straddle lanes carry zero weight and
-    zero amp, and the coupled iteration skip only adds exact no-op sweeps
-    (PERF.md round-5 levers)."""
-    from lws_tpu.ops.pallas_packed import tiled_lws_sweeps
-
-    p, A, _ = _setup(golden_q4, max_t=40)
-    Ab = np.stack([A, 0.6 * A, 0.3 * A, 1.4 * A])  # B=4, pack=2 -> G=2
-    pair = split(Ab, dtype=jnp.float32)
-    thr = jnp.asarray(get_thresholds(3, 100, 0.1, 1), dtype=jnp.float32)
+def test_nofuture_and_batch_stencils_f64_exact(golden_q4, scheme):
+    """float64: both sweep stencils (full visibility and strictly past)
+    agree with the XLA path to roundoff under either in-frame scheme."""
+    p = LWS(512, 128, dtype=jnp.float64, inner_scheme=scheme)
+    A = np.abs(golden_q4.S[:30]).astype(np.complex128)
+    pair = split(A, dtype=jnp.float64)
+    thr = jnp.asarray(get_thresholds(3, 0.5, 0.5, 1))
     for st in (p._st_batch, p._st_nofuture):
-        for carry in ("rows", "stack", "direct"):
-            for ip in (1, 3):
-                base = tiled_lws_sweeps(*pair, st=st, thresholds=thr, pack=2,
-                                        interpret=True, window_carry=carry,
-                                        inner_passes=ip)
-                got = tiled_lws_sweeps(*pair, st=st, thresholds=thr, pack=2,
-                                       interpret=True, window_carry=carry,
-                                       inner_passes=ip, lane_fold=2)
-                np.testing.assert_array_equal(np.asarray(got[0]),
-                                              np.asarray(base[0]))
-                np.testing.assert_array_equal(np.asarray(got[1]),
-                                              np.asarray(base[1]))
+        ref = lws_sweeps(*pair, st=st, thresholds=thr, order="gs",
+                         inner_scheme=scheme)
+        got = _gs(pair, st, thr, inner_scheme=scheme)
+        assert np.abs(np.asarray(ref[0]) - np.asarray(pair[0])).max() > 0
+        _close(got, ref, 1e-8)
 
 
-def test_lane_fold_with_frozen_halos_and_mean(golden_q4):
-    """Folding composes with the frozen time-halo / global-mean contract
-    (the macro-chunk and sharded callers' interface): explicit halo frames
-    and an external mean_amp produce bit-identical folded output."""
-    from lws_tpu.ops.pallas_packed import tiled_lws_sweeps
-
-    p, A, _ = _setup(golden_q4, max_t=40)
-    Ab = np.stack([A, 0.6 * A, 0.3 * A, 1.4 * A])  # B=4, pack=2 -> G=2
-    pair = split(Ab, dtype=jnp.float32)
-    thr = jnp.asarray(get_thresholds(3, 100, 0.1, 1), dtype=jnp.float32)
+def test_kernel_frozen_halos_and_mean(golden_q4):
+    """Explicit frozen time halos and an external mean_amp (the macro-chunk,
+    segmented and sharded callers' contract) match lws_sweeps'."""
+    p, A, _ = _setup(golden_q4, dtype=jnp.float64, max_t=30)
+    Ab = np.stack([A, 0.6 * A])
+    pair = split(Ab, dtype=jnp.float64)
+    thr = jnp.asarray(get_thresholds(3, 100, 0.1, 1))
     rng = np.random.default_rng(3)
-    Q1 = p._Qi - 1
-    halo = tuple(jnp.asarray(rng.standard_normal((4, Q1, Ab.shape[-1])),
-                             jnp.float32) for _ in range(4))
-    mean = jnp.asarray([0.5, 1.0, 1.5, 2.0], jnp.float32)
-    for carry in ("rows", "direct"):
-        base = tiled_lws_sweeps(*pair, st=p._st_batch, thresholds=thr,
-                                pack=2, interpret=True, window_carry=carry,
-                                halo=halo, mean_amp=mean)
-        got = tiled_lws_sweeps(*pair, st=p._st_batch, thresholds=thr,
-                               pack=2, interpret=True, window_carry=carry,
-                               halo=halo, mean_amp=mean, lane_fold=2)
-        np.testing.assert_array_equal(np.asarray(got[0]), np.asarray(base[0]))
-        np.testing.assert_array_equal(np.asarray(got[1]), np.asarray(base[1]))
+    halo = tuple(jnp.asarray(rng.standard_normal((2, p._Qi - 1, 257)))
+                 for _ in range(4))
+    mean = jnp.asarray([0.5, 1.5])
+    ref = lws_sweeps(*pair, st=p._st_batch, thresholds=thr, halo=halo,
+                     mean_amp=mean)
+    _close(_gs(pair, p._st_batch, thr, halo=halo, mean_amp=mean), ref, 1e-8)
 
 
-def test_lane_fold_fractional_and_clamp():
-    """Folded per-bin weight rows under fractional Q stay exact, and a fold
-    that does not divide the group count clamps to the largest divisor
-    (here 4 -> 3) instead of failing."""
-    from lws_tpu.ops.pallas_packed import effective_fold, tiled_lws_sweeps
-
+def test_kernel_fractional_q():
+    """Per-bin weight rows under fractional Q (8/3) stay exact."""
     rng = np.random.default_rng(7)
-    p = LWS(64, 24, inner_scheme="jacobi")  # Q = 8/3 fractional
-    S = (rng.standard_normal((6, 16, 33))
-         + 1j * rng.standard_normal((6, 16, 33))).astype(np.complex64)
-    pair = split(S, dtype=jnp.float32)
-    thr = jnp.asarray(get_thresholds(3, 100, 0.1, 1), dtype=jnp.float32)
-    base = tiled_lws_sweeps(*pair, st=p._st_batch, thresholds=thr, pack=2,
-                            interpret=True)
-    assert effective_fold(6, 2, 4) == 3
-    got = tiled_lws_sweeps(*pair, st=p._st_batch, thresholds=thr, pack=2,
-                           interpret=True, lane_fold=4)
-    np.testing.assert_array_equal(np.asarray(got[0]), np.asarray(base[0]))
-    np.testing.assert_array_equal(np.asarray(got[1]), np.asarray(base[1]))
+    p = LWS(64, 24, inner_scheme="jacobi", dtype=jnp.float64)
+    S = (rng.standard_normal((3, 16, 33))
+         + 1j * rng.standard_normal((3, 16, 33)))
+    pair = split(S, dtype=jnp.float64)
+    thr = jnp.asarray(get_thresholds(3, 100, 0.1, 1))
+    ref = lws_sweeps(*pair, st=p._st_batch, thresholds=thr)
+    _close(_gs(pair, p._st_batch, thr), ref, 1e-8)
 
 
 def test_threshold_iteration_skip_is_bit_neutral(golden_q4):
-    """The sparsity-threshold iteration skip in the tiled kernel is exact:
-    an all-dead schedule is a pure identity, and a schedule whose leading
-    sweeps are dead (the reference batch defaults, alpha=100) still matches
-    the XLA GS path (python/lws.pyx:203-206 skip semantics)."""
-    from lws_tpu.ops.pallas_packed import tiled_lws_sweeps
-
+    """The sparsity-threshold sweep skip is exact: an all-dead schedule is a
+    pure identity, and a schedule whose leading sweeps are dead (the
+    reference batch defaults, alpha=100) still matches the XLA GS path
+    (python/lws.pyx:203-206 skip semantics)."""
     p, A, pair = _setup(golden_q4, max_t=40)
     dead = jnp.full((4,), jnp.inf, dtype=jnp.float32)
-    out = tiled_lws_sweeps(*pair, st=p._st_batch, thresholds=dead, pack=2,
-                           interpret=True)
-    np.testing.assert_array_equal(np.asarray(out[0]), np.asarray(pair[0]))
-    np.testing.assert_array_equal(np.asarray(out[1]), np.asarray(pair[1]))
+    _eq(_gs(pair, p._st_batch, dead), pair)
 
     thr = jnp.asarray(get_thresholds(10, 100, 0.5, 1), dtype=jnp.float32)
-    got = merge(*tiled_lws_sweeps(*pair, st=p._st_batch, thresholds=thr,
-                                  pack=2, interpret=True,
-                                  inner_scheme=p.inner_scheme,
-                                  inner_passes=p.batch_inner_passes))
+    got = merge(*_gs(pair, p._st_batch, thr, inner_passes=p.batch_inner_passes,
+                     inner_scheme=p.inner_scheme))
     ref = np.asarray(p.batch_lws(A, thresholds=np.asarray(thr)))
-    # rtol covers large-magnitude bins whose f32 accumulation-order ulps
-    # the 10-sweep GS amplifies (one 0.004-abs/1.9e-4-rel element observed)
     np.testing.assert_allclose(got, ref, atol=2e-3, rtol=5e-4)
 
 
-def test_lane_skip_is_bit_neutral(golden_q4):
-    """lane_skip (lane-granular threshold skip, the reference's per-bin
-    skip at VPU register-tile granularity) is bit-identical to the dense
-    path on all batch kernels and the streaming online kernel. It measured
-    SLOWER on the real chip (PERF.md: branch overhead beats the saved taps)
-    so it is opt-in, but its semantics must stay exact."""
-    from lws_tpu.ops.pallas_packed import (packed_lws_sweeps,
-                                           packed_rtisi_la,
-                                           segmented_lws_sweeps,
-                                           tiled_lws_sweeps)
+def test_online_drain_and_look_ahead_zero(golden_q4):
+    """look_ahead=0 (newest frame only) matches the XLA scan, and drain
+    frames (n_live) never update."""
+    p = LWS(512, 128, look_ahead=0, dtype=jnp.float64)
+    A = np.abs(golden_q4.S[:30]).astype(np.complex128)
+    pair = split(A, dtype=jnp.float64)
+    thr = jnp.asarray(get_thresholds(2, 1, 0.1, 1))
+    ref = rtisi_la(*pair, p._st_la, p._st_nofuture, p._st_af, thr)
+    _close(_online(p, pair, thr), ref, 1e-8)
 
-    p, A, pair = _setup(golden_q4, max_t=40)
-    thr = jnp.asarray(get_thresholds(3, 100, 0.5, 1), dtype=jnp.float32)
-    seg = functools.partial(segmented_lws_sweeps, segments=2)
-    for fn in (tiled_lws_sweeps, packed_lws_sweeps, seg):
-        base = fn(*pair, st=p._st_batch, thresholds=thr, pack=2,
-                  interpret=True)
-        got = fn(*pair, st=p._st_batch, thresholds=thr, pack=2,
-                 interpret=True, lane_skip=True)
-        np.testing.assert_array_equal(np.asarray(got[0]), np.asarray(base[0]))
-        np.testing.assert_array_equal(np.asarray(got[1]), np.asarray(base[1]))
-
-    othr = jnp.asarray(get_thresholds(2, 1, 0.1, 1), dtype=jnp.float32)
-    base = packed_rtisi_la(*pair, st_la=p._st_la, st_ai=p._st_nofuture,
-                           st_af=p._st_af, thresholds=othr, pack=2,
-                           interpret=True)
-    got = packed_rtisi_la(*pair, st_la=p._st_la, st_ai=p._st_nofuture,
-                          st_af=p._st_af, thresholds=othr, pack=2,
-                          interpret=True, lane_skip=True)
-    np.testing.assert_array_equal(np.asarray(got[0]), np.asarray(base[0]))
-    np.testing.assert_array_equal(np.asarray(got[1]), np.asarray(base[1]))
+    p3 = LWS(512, 128, dtype=jnp.float64)
+    sr, si = pair[0][None], pair[1][None]
+    state = online_chunk_init(sr[:, 0], si[:, 0], p3._st_la, p3._st_af)
+    means = jnp.ones((1, 30))
+    cr, ci, _ = online_chunk(sr, si, state, means, p3._st_la,
+                             p3._st_nofuture, p3._st_af, thr, 0, n_live=0,
+                             interpret=True)
+    # nothing updates: committed row j is input frame j - LA (rows before
+    # the pipeline filled hold the first-frame replicas)
+    LA = p3.look_ahead
+    np.testing.assert_array_equal(np.asarray(cr[0, LA:]),
+                                  np.asarray(sr[0, :30 - LA]))
 
 
-@pytest.mark.parametrize("scheme", ["jacobi", "color2x3"])
-def test_direct_carry_is_bit_neutral(golden_q4, scheme):
-    """window_carry='direct' (no carried window: rows stored frequency-pre-
-    extended in the slabs, taps read straight from scratch) is bit-identical
-    to the stacked-window formulation on all three batch-path kernels, both
-    inner schemes, and the no-future visibility. Thresholds are chosen so
-    the sweeps are genuinely live (asserted), not no-ops."""
-    from lws_tpu.ops.pallas_packed import (packed_lws_sweeps,
-                                           segmented_lws_sweeps,
-                                           tiled_lws_sweeps)
-
-    p, A, pair = _setup(golden_q4, max_t=40)
-    thr = jnp.asarray(get_thresholds(3, 0.5, 0.5, 1), dtype=jnp.float32)
-    seg = functools.partial(segmented_lws_sweeps, segments=2)
-    for fn in (tiled_lws_sweeps, packed_lws_sweeps, seg):
-        base = fn(*pair, st=p._st_batch, thresholds=thr, pack=2,
-                  inner_scheme=scheme, interpret=True)
-        assert np.abs(np.asarray(base[0]) - np.asarray(pair[0])).max() > 0
-        got = fn(*pair, st=p._st_batch, thresholds=thr, pack=2,
-                 inner_scheme=scheme, interpret=True, window_carry="direct")
-        np.testing.assert_array_equal(np.asarray(got[0]), np.asarray(base[0]))
-        np.testing.assert_array_equal(np.asarray(got[1]), np.asarray(base[1]))
-    base = tiled_lws_sweeps(*pair, st=p._st_nofuture, thresholds=thr, pack=2,
-                            interpret=True)
-    got = tiled_lws_sweeps(*pair, st=p._st_nofuture, thresholds=thr, pack=2,
-                           interpret=True, window_carry="direct")
-    np.testing.assert_array_equal(np.asarray(got[0]), np.asarray(base[0]))
-
-
-def test_tap_chunks_are_bit_neutral(golden_q4):
-    """tap_chunks (chunked tap accumulation to bound the Mosaic stack spill)
-    is bit-identical to the whole-row update on the batch kernels."""
-    from lws_tpu.ops.pallas_packed import (packed_lws_sweeps,
-                                           tiled_lws_sweeps)
-
-    p, A, pair = _setup(golden_q4, max_t=40)
-    thr = jnp.asarray(get_thresholds(3, 0.5, 0.5, 1), dtype=jnp.float32)
-    for fn in (tiled_lws_sweeps, packed_lws_sweeps):
-        base = fn(*pair, st=p._st_batch, thresholds=thr, pack=2,
-                  interpret=True)
-        assert np.abs(np.asarray(base[0]) - np.asarray(pair[0])).max() > 0
-        for tc in (2, 3):
-            got = fn(*pair, st=p._st_batch, thresholds=thr, pack=2,
-                     interpret=True, tap_chunks=tc)
-            np.testing.assert_array_equal(np.asarray(got[0]),
-                                          np.asarray(base[0]))
+@pytest.mark.parametrize("geom", [(16, 4, 5), (48, 12, 3)])
+def test_kernel_narrow_rows(geom):
+    """Rows narrower than the stencil reach (F=9 with L=5: the left and
+    right conjugate margins overlap) keep the XLA semantics."""
+    fsize, fshift, L = geom
+    p = LWS(fsize, fshift, L=L, dtype=jnp.float64, inner_scheme="jacobi")
+    F = fsize // 2 + 1
+    rng = np.random.default_rng(fsize)
+    S = rng.standard_normal((2, 12, F)) + 1j * rng.standard_normal((2, 12, F))
+    pair = split(S, dtype=jnp.float64)
+    thr = jnp.asarray(get_thresholds(3, 1, 0.1, 1))
+    ref = lws_sweeps(*pair, st=p._st_batch, thresholds=thr)
+    _close(_gs(pair, p._st_batch, thr), ref, 1e-8)
+    ref = rtisi_la(*pair, p._st_la, p._st_nofuture, p._st_af, thr)
+    _close(_online(p, pair, thr), ref, 1e-8)
 
 
 def test_inner_passes_kernel_matches_xla(golden_q4):
-    """The window kernels honour inner_passes (in-frame jacobi re-passes,
+    """The kernel honours inner_passes (in-frame jacobi re-passes,
     core/stencil.py update_frame semantics): float64 agreement with the XLA
-    GS path to 1e-8 for passes in {2, 3}, in both carry modes, and passes=2
-    genuinely changes the result vs passes=1."""
-    from lws_tpu.core.batch import lws_sweeps
-    from lws_tpu.ops.pallas_packed import tiled_lws_sweeps
-
+    GS path for passes in {2, 3}, and passes=2 genuinely changes the result
+    vs passes=1."""
     p, A, pair = _setup(golden_q4, dtype=jnp.float64, max_t=40)
     thr = jnp.asarray(get_thresholds(3, 0.5, 0.5, 1), dtype=jnp.float64)
-    one = tiled_lws_sweeps(*pair, st=p._st_batch, thresholds=thr, pack=2,
-                           interpret=True)
+    one = _gs(pair, p._st_batch, thr)
     for passes in (2, 3):
         ref = lws_sweeps(*pair, st=p._st_batch, thresholds=thr, order="gs",
                          inner_passes=passes)
-        for carry in ("stack", "direct"):
-            got = tiled_lws_sweeps(*pair, st=p._st_batch, thresholds=thr,
-                                   pack=2, interpret=True,
-                                   inner_passes=passes, window_carry=carry)
-            np.testing.assert_allclose(np.asarray(got[0]), np.asarray(ref[0]),
-                                       atol=1e-8)
-            np.testing.assert_allclose(np.asarray(got[1]), np.asarray(ref[1]),
-                                       atol=1e-8)
+        _close(_gs(pair, p._st_batch, thr, inner_passes=passes), ref, 1e-8)
         if passes == 2:
             assert np.abs(np.asarray(ref[0]) - np.asarray(one[0])).max() > 1e-6
 
 
 def test_macro_sweeps_chunking_logic(monkeypatch):
-    """The macro time-chunking path (ultra-long T, bounded HBM): chunk
-    bounds tile T exactly, each chunk receives REAL-neighbour stage-entry
-    halos (edge replicas only at the true signal boundaries) and the
-    whole-signal mean, and the concatenated result preserves frame order.
-    The on-chip 2-hour run is validated in PERF.md; this pins the
-    host-side slicing logic everywhere."""
-    from lws_tpu import LWS
-
+    """The macro time-chunking path (ultra-long T, bounded device memory):
+    chunk bounds tile T exactly, each chunk receives REAL-neighbour
+    stage-entry halos (edge replicas only at the true signal boundaries) and
+    the whole-signal mean, and the concatenated result preserves frame
+    order. This pins the host-side slicing logic everywhere."""
     proc = LWS(512, 128, dtype=jnp.float32)
     B, T, F = 2, 50, 257
     Q1 = proc._Qi - 1
@@ -835,14 +604,12 @@ def test_macro_sweeps_chunking_logic(monkeypatch):
     proc._MACRO_CHUNK = 20
     seen = []
 
-    def spy(sr_c, si_c, thresholds, tiled, seg, xla, st, halo=None,
-            mean_amp=None):
+    def spy(sr_c, si_c, thresholds, gpu, seg, xla, halo=None, mean_amp=None):
         seen.append((sr_c.shape, halo, mean_amp))
         return sr_c, si_c
 
     monkeypatch.setattr(proc, "_sweep_fn", spy)
-    o_r, o_i = proc._macro_sweeps(sr, si, jnp.zeros((1,)), None, None,
-                                  None, None)
+    o_r, o_i = proc._macro_sweeps(sr, si, jnp.zeros((1,)), None, None, None)
     # identity chunks concatenate back to the input
     np.testing.assert_array_equal(np.asarray(o_r), np.asarray(sr))
     assert sum(s[0][1] for s in seen) == T
@@ -864,3 +631,21 @@ def test_macro_sweeps_chunking_logic(monkeypatch):
                                     axis=(-2, -1)))
     for _, _, m in seen:
         np.testing.assert_allclose(np.asarray(m), want_mean, rtol=1e-6)
+
+
+def test_kernel_fixed_target_magnitudes(golden_q4):
+    """A stage run as several calls (halo-exchange rounds) passes the
+    stage-entry magnitudes as `amp`: every call then restores exactly those
+    magnitudes, and the result equals one call over all sweeps."""
+    p, A, pair = _setup(golden_q4, dtype=jnp.float64, max_t=30)
+    thr = jnp.asarray(get_thresholds(4, 1, 0.1, 1))
+    amp = jnp.sqrt(pair[0] ** 2 + pair[1] ** 2)
+    entry = dict(amp=amp, mean_amp=jnp.mean(amp)[None], halo=tuple(
+        jnp.repeat(x[None, r], p._Qi - 1, axis=1)
+        for r in (slice(0, 1), slice(-1, None)) for x in pair))
+    one = _gs(pair, p._st_batch, thr)
+    two = _gs(pair, p._st_batch, thr[:2], **entry)
+    two = _gs(two, p._st_batch, thr[2:], **entry)
+    _close(two, one, 1e-8)
+    np.testing.assert_allclose(np.hypot(*map(np.asarray, two)),
+                               np.asarray(amp), rtol=1e-12)

@@ -12,8 +12,8 @@ import pytest
 
 import jax.numpy as jnp
 
-import lws_tpu
-from lws_tpu import LWS, get_thresholds
+import lws_jax
+from lws_jax import LWS, get_thresholds
 
 
 def _proc(golden, **kw):
@@ -134,13 +134,13 @@ def test_functional_api_matches_class(golden_q4):
     p = _proc(g)
     A = jnp.abs(jnp.asarray(g.S)).astype(jnp.complex128)
     thr = get_thresholds(3, 100, 0.1, 1)
-    out_f = lws_tpu.batch_lws(A, p.W, thr)  # same W object -> exact equality
+    out_f = lws_jax.batch_lws(A, p.W, thr)  # same W object -> exact equality
     out_c = p.batch_lws(A, thresholds=thr)
     np.testing.assert_allclose(np.asarray(out_f), np.asarray(out_c), atol=1e-12)
-    out_nf = lws_tpu.nofuture_lws(A, p.W_ai, get_thresholds(1, 1, 0.1, 1))
+    out_nf = lws_jax.nofuture_lws(A, p.W_ai, get_thresholds(1, 1, 0.1, 1))
     np.testing.assert_allclose(np.asarray(out_nf),
                                np.asarray(p.nofuture_lws(A, iterations=1)), atol=1e-12)
-    out_on = lws_tpu.online_lws(A, p.W, p.W_ai, p.W_af, get_thresholds(2, 1, 0.1, 1),
+    out_on = lws_jax.online_lws(A, p.W, p.W_ai, p.W_af, get_thresholds(2, 1, 0.1, 1),
                                 LA=3, fshift=int(g.fshift))
     np.testing.assert_allclose(np.asarray(out_on),
                                np.asarray(p.online_lws(A, iterations=2)), atol=1e-12)
@@ -155,7 +155,7 @@ def test_zero_iterations_identity(golden_q4):
 
 
 def test_run_with_metrics(golden_q4):
-    from lws_tpu.utils import run_with_metrics
+    from lws_jax.utils import run_with_metrics
     g = golden_q4
     p = _proc(g, nofuture_iterations=1, online_iterations=2, batch_iterations=5)
     A = jnp.abs(jnp.asarray(g.S)).astype(jnp.complex128)
@@ -200,9 +200,8 @@ def test_macro_chunk_equivalence_full_schedule():
     chunked vs unchunked batch output at the FULL 100-iteration schedule,
     bench-scale T, float64. The chunk seams use REAL-neighbour frozen halos
     plus the whole-signal threshold scale, so a seam behaves like a
-    segmented-kernel seam with zero exchanges — measured Δ0.005 dB on the
-    on-chip 2-hour run (PERF.md); this pins the same equivalence on the CPU
-    XLA path where it runs in CI."""
+    segmented-kernel seam with zero exchanges; this pins the equivalence
+    on the CPU XLA path where it runs in CI."""
     p = LWS(512, 128, dtype=jnp.float64)
     rng = np.random.default_rng(9)
     t = np.arange(80000) / 16000.0
@@ -215,13 +214,13 @@ def test_macro_chunk_equivalence_full_schedule():
     thr = get_thresholds(100, 100, 0.1, 1)
     out_full = np.asarray(p.batch_lws(A, thresholds=thr))
 
-    # chunk at CPU scale: 3 chunks of ~210 frames (the on-chip ratio class)
+    # chunk at CPU scale: 3 chunks of ~210 frames
     p._MACRO_T = 256
     p._MACRO_CHUNK = 256
     out_chunk = np.asarray(p.batch_lws(A, thresholds=thr))
     c_f = float(np.asarray(p.get_consistency(out_full)))
     c_c = float(np.asarray(p.get_consistency(out_chunk)))
-    # measured 0.008 dB here (matching the on-chip 0.005 dB, PERF.md)
+    # measured 0.008 dB here
     assert abs(c_f - c_c) < 0.02, (c_f, c_c)
     # magnitudes are exactly preserved through the chunked path too
     np.testing.assert_allclose(np.abs(out_chunk), np.abs(A), atol=1e-8)

@@ -14,8 +14,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from lws_tpu import build_stencil
-from lws_tpu.core.stencil import (
+from lws_jax import build_stencil
+from lws_jax.core.stencil import (
     apply_stencil,
     freq_extend,
     make_stencil,

@@ -4,7 +4,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from lws_tpu import LWS, get_consistency, istft, stft
+from lws_jax import LWS, get_consistency, istft, stft
 
 
 def test_stft_matches_reference(golden):
@@ -67,7 +67,7 @@ def test_stft_nonperfectrec_layout():
 
 
 def test_wav_io_roundtrip(tmp_path):
-    from lws_tpu.io import read_wav, write_wav
+    from lws_jax.io import read_wav, write_wav
     sr = 16000
     x = 0.5 * np.sin(2 * np.pi * 440 * np.arange(sr) / sr)
     p = tmp_path / "t.wav"
@@ -85,7 +85,7 @@ def test_framepadding_option(golden_q4):
     """framepadding=True zero-pads (Q-1)*fshift both sides before framing
     (matlab/stft.m:43-46): adds 2*(Q-1) frames and embeds the unpadded
     frames in the middle."""
-    from lws_tpu import LWS
+    from lws_jax import LWS
     g = golden_q4
     p = LWS(int(g.fsize), int(g.fshift), L=int(g.L), dtype=jnp.float64,
             perfectrec=False)
@@ -101,7 +101,7 @@ def test_framepadding_option(golden_q4):
 def test_24bit_wav_roundtrip(tmp_path):
     """24-bit PCM WAV read support (reference's MATLAB audioread handles it)."""
     import wave
-    from lws_tpu.io import read_wav
+    from lws_jax.io import read_wav
     rng = np.random.default_rng(5)
     x = np.clip(rng.standard_normal(1000) * 0.3, -1, 1)
     i32 = (x * 2147483647).astype(np.int64).astype(np.int32)
@@ -126,7 +126,7 @@ def test_frame_signal_overlap_add_roundtrip():
     unwindowed frames reproduces each sample scaled by its frame coverage
     count (the COLA identity both istft and the streaming emission rely on)."""
     import jax.numpy as jnp
-    from lws_tpu.stft import frame_signal, overlap_add
+    from lws_jax.stft import frame_signal, overlap_add
     rng = np.random.default_rng(7)
     for fsize, fshift in [(512, 128), (500, 160), (256, 256)]:
         M = 11
@@ -150,7 +150,7 @@ def test_blocked_consistency_matches_oneshot(perfectrec):
     trip on chip) computes the same metric: OLA linearity makes the
     chunked iSTFT + per-chunk error accumulation exact up to f32 seam
     addition order."""
-    from lws_tpu.stft import (_consistency_blocked, _consistency_jit,
+    from lws_jax.stft import (_consistency_blocked, _consistency_jit,
                               _prep_swin)
     p = LWS(512, 128, perfectrec=perfectrec)
     rng = np.random.default_rng(0)

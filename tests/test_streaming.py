@@ -4,8 +4,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from lws_tpu import LWS
-from lws_tpu.streaming import StreamingLWS
+from lws_jax import LWS
+from lws_jax.streaming import StreamingLWS
 
 
 def _padded_signal(proc, x):
@@ -190,27 +190,28 @@ def test_batched_streams_match_single(golden_q4):
 
 
 # ---------------------------------------------------------------------------
-# chunked Pallas backend (ops/pallas_packed.py::online_chunk)
+# chunked GPU-kernel backend (ops/gpu_sweeps.py::online_chunk), run in the
+# Pallas interpreter
 # ---------------------------------------------------------------------------
 
 def _pallas_stream(proc, iters, mean_amp, streams=1):
     return StreamingLWS(proc, iterations=iters, mean_amp=mean_amp,
                         streams=streams, keep_frames=True,
-                        backend="pallas", interpret=True)
+                        backend="gpu")
 
 
 def test_pallas_streaming_matches_offline_packed(golden_q4):
-    """The chunked Pallas backend with a fixed mean_amp reproduces the
-    offline packed_rtisi_la kernel: the carried window state is exactly the
-    offline kernel's register window (bit-exact at equal compilation —
-    tests/test_pallas.py::test_online_chunk_matches_offline_exact; here the
-    stream's jitted chunk fn and the offline program fuse differently, so
-    the comparison uses the standard chaos band)."""
-    from lws_tpu.ops.pallas_packed import packed_rtisi_la
-    from lws_tpu.windows import get_thresholds
+    """The chunked kernel backend with a fixed mean_amp reproduces the
+    offline online_sweeps kernel: the carried rows are exactly the offline
+    kernel's slab rows (tests/test_pallas.py::
+    test_online_chunk_matches_offline_exact; here the stream's jitted chunk
+    fn and the offline program fuse differently, so the comparison uses the
+    standard chaos band)."""
+    from lws_jax.ops.gpu_sweeps import online_sweeps
+    from lws_jax.windows import get_thresholds
     g = golden_q4
     proc = LWS(int(g.fsize), int(g.fshift), L=int(g.L), dtype=jnp.float64,
-               online_iterations=4)
+               interpret=True, online_iterations=4)
     S = proc.stft(np.asarray(g.x))
     A = np.abs(S)
     T, F = A.shape
@@ -224,7 +225,7 @@ def test_pallas_streaming_matches_offline_packed(golden_q4):
     import jax
     import functools
     offline_fn = jax.jit(functools.partial(
-        packed_rtisi_la, st_la=proc._st_la, st_ai=proc._st_nofuture,
+        online_sweeps, st_la=proc._st_la, st_ai=proc._st_nofuture,
         st_af=proc._st_af, thresholds=thr, interpret=True))
     osr, osi = offline_fn(sr, jnp.zeros_like(sr))
     offline = np.asarray(osr[0]) + 1j * np.asarray(osi[0])
@@ -248,7 +249,7 @@ def test_pallas_chunk_size_invariance(golden_q4):
     """Any chunking of the same stream yields bit-identical audio."""
     g = golden_q4
     proc = LWS(int(g.fsize), int(g.fshift), L=int(g.L), dtype=jnp.float64,
-               online_iterations=3)
+               interpret=True, online_iterations=3)
     x = _padded_signal(proc, np.asarray(g.x))
 
     def run(chunk):
@@ -265,7 +266,7 @@ def test_pallas_chunk_size_invariance(golden_q4):
 
 
 def test_pallas_flush_emits_true_ola_tail(golden_q4):
-    """flush() on the pallas backend must emit the final fsize-fshift
+    """flush() on the kernel backend must emit the final fsize-fshift
     samples of overlap-add audio (the commit-frontier tail). Block
     quantisation pads the final chunk with drain rows, which used to strand
     the true tail in the unemitted audio region and emit the carried state
@@ -273,7 +274,7 @@ def test_pallas_flush_emits_true_ola_tail(golden_q4):
     including the tail."""
     g = golden_q4
     proc = LWS(int(g.fsize), int(g.fshift), L=int(g.L), dtype=jnp.float64,
-               online_iterations=3)
+               interpret=True, online_iterations=3)
     x = _padded_signal(proc, np.asarray(g.x))
     mean_amp = float(np.mean(np.abs(proc.stft(np.asarray(g.x)))))
 
@@ -298,7 +299,7 @@ def test_pallas_batched_streams_match_single(golden_q4):
     is tracked per stream)."""
     g = golden_q4
     proc = LWS(int(g.fsize), int(g.fshift), L=int(g.L), dtype=jnp.float64,
-               online_iterations=3)
+               interpret=True, online_iterations=3)
     x = _padded_signal(proc, np.asarray(g.x))
     xs = np.stack([x, 0.3 * x, np.roll(x, 1000), -x])
 
@@ -321,14 +322,14 @@ def test_pallas_device_emit_matches_host(golden_q4):
     program, only the materialisation point differs."""
     g = golden_q4
     proc = LWS(int(g.fsize), int(g.fshift), L=int(g.L), dtype=jnp.float64,
-               online_iterations=2)
+               interpret=True, online_iterations=2)
     x = _padded_signal(proc, np.asarray(g.x))[:6000]
 
     sh = _pallas_stream(proc, 2, 1.0)
     yh = np.concatenate([sh.push_block(x), sh.flush()], axis=-1)
 
-    sd = StreamingLWS(proc, iterations=2, mean_amp=1.0, backend="pallas",
-                      interpret=True, emit="device")
+    sd = StreamingLWS(proc, iterations=2, mean_amp=1.0, backend="gpu",
+                      emit="device")
     outs = [sd.push_block(x), sd.flush()]
     assert all(isinstance(o, jnp.ndarray) for o in outs)
     yd = np.asarray(jnp.concatenate(outs, axis=-1))
@@ -336,21 +337,21 @@ def test_pallas_device_emit_matches_host(golden_q4):
 
     # prefetch (async device->host copies of returned blocks, the serving
     # collection optimisation) is value-neutral: same bits with it disabled
-    sn = StreamingLWS(proc, iterations=2, mean_amp=1.0, backend="pallas",
-                      interpret=True, emit="device", prefetch=False)
+    sn = StreamingLWS(proc, iterations=2, mean_amp=1.0, backend="gpu",
+                      emit="device", prefetch=False)
     yn = np.asarray(jnp.concatenate([sn.push_block(x), sn.flush()], axis=-1))
     np.testing.assert_array_equal(yn, yd)
 
 
 def test_pallas_stream_fuzz_geometries_vs_xla():
-    """The chunked pallas backend agrees with the XLA per-frame backend on
+    """The chunked kernel backend agrees with the XLA per-frame backend on
     random geometries (fsize/fshift/L/LA), not just the golden q4 one —
     full audio including the flush tail, fixed mean for determinism."""
     rng = np.random.default_rng(21)
     for fsize, fshift, L, LA in [(384, 96, 3, 2), (512, 160, 4, 1),
                                  (256, 64, 5, 3)]:
         proc = LWS(fsize, fshift, L=L, look_ahead=LA, dtype=jnp.float64,
-                   online_iterations=2)
+                   interpret=True, online_iterations=2)
         n = 20 * fshift + fsize
         t = np.arange(n) / 16000.0
         x = (0.6 * np.sin(2 * np.pi * 220 * t)
@@ -360,7 +361,7 @@ def test_pallas_stream_fuzz_geometries_vs_xla():
         sx = StreamingLWS(proc, iterations=2, mean_amp=mean, backend="xla")
         yx = np.concatenate([sx.push(x), sx.flush()], axis=-1)
         sp = StreamingLWS(proc, iterations=2, mean_amp=mean,
-                          backend="pallas", interpret=True, block_frames=8)
+                          backend="gpu", block_frames=8)
         yp = np.concatenate([sp.push(x), sp.flush()], axis=-1)
         assert yp.shape == yx.shape, (fsize, fshift, yp.shape, yx.shape)
         np.testing.assert_allclose(yp, yx, rtol=1e-3, atol=1e-4,
@@ -369,8 +370,8 @@ def test_pallas_stream_fuzz_geometries_vs_xla():
 
 def test_stream_stats_recorded():
     """Push entry points record latency/throughput into .stats."""
-    import lws_tpu
-    proc = lws_tpu.LWS(512, 128, look_ahead=2, online_iterations=2,
+    import lws_jax
+    proc = lws_jax.LWS(512, 128, look_ahead=2, online_iterations=2,
                        dtype=jnp.float64)
     s = StreamingLWS(proc, iterations=2, backend="xla")
     x = np.sin(2 * np.pi * 220 * np.arange(4096) / 16000)

@@ -6,7 +6,7 @@ import warnings
 import numpy as np
 import pytest
 
-from lws_tpu import LWS
+from lws_jax import LWS
 
 
 def test_fftsize_padding_warns():
@@ -42,26 +42,28 @@ def test_asymmetric_window_silent_without_simplifications():
         LWS(np.sqrt(win + 1e-3), 64, use_simplifications=False)
 
 
-def test_direct_with_tap_chunks_rejected():
-    with pytest.raises(ValueError, match="tap_chunks"):
-        LWS(512, 128, pallas_window="direct", pallas_tap_chunks=2)
+def test_unknown_backend_rejected():
+    with pytest.raises(ValueError, match="backend must be"):
+        LWS(512, 128, backend="tiled")
 
 
-def test_bf16_storage_warns_quality_ceiling():
-    # PERF.md: bf16 state storage caps achievable consistency near ~22 dB
-    with pytest.warns(UserWarning, match="22 dB"):
-        LWS(512, 128, pallas_storage="bfloat16")
+def test_streaming_unknown_backend_rejected():
+    from lws_jax import StreamingLWS
+    with pytest.raises(ValueError, match="backend must be"):
+        StreamingLWS(LWS(512, 128, look_ahead=2), backend="pallas")
 
 
-def test_f32_storage_does_not_warn():
+def test_default_construction_does_not_warn():
     with warnings.catch_warnings():
         warnings.simplefilter("error")
-        LWS(512, 128, pallas_storage="float32")
+        LWS(512, 128, mode="music")
+        LWS(2048, 256, backend="gpu")
 
 
 def test_jacobi_mxu_default_precision_warns_quality_floor():
-    # PERF.md: default (bf16-pass) matmul precision floors out ~19 dB
-    with pytest.warns(UserWarning, match="19 dB"):
+    # PERF.md: at the default matmul precision (TF32 on the GPU) the banded
+    # matmuls floor achievable consistency
+    with pytest.warns(UserWarning, match="TF32"):
         LWS(512, 128, order="jacobi_mxu")
 
 

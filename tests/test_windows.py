@@ -1,7 +1,7 @@
 """Windows/weights construction vs reference goldens (exact, float64)."""
 import numpy as np
 
-from lws_tpu import (
+from lws_jax import (
     build_asymmetric_windows,
     create_weights,
     default_window,

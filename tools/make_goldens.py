@@ -11,7 +11,7 @@ compute core of Jonathan-LeRoux/lws. This tool:
      (a 3-line extern-C wrapper written here; no reference code is copied
      into this repo),
   2. prepares inputs (windows, weights, STFT, extended spectrograms) with
-     the published float64 math below — the same formulas lws_tpu's own
+     the published float64 math below — the same formulas lws_jax's own
      windows.py/weights.py/stft.py implement (lws.pyx:10-206 documents
      them); operation order follows the reference so regeneration is
      bit-reproducible,
@@ -83,9 +83,9 @@ def ip(a):
 # own vectorized idiom. Per-element arithmetic ORDER matches the reference
 # evaluation so regeneration stays bit-stable against the committed goldens
 # (the C kernels are driven with these prep outputs, so any prep drift would
-# cascade). lws_tpu implements the same math independently in
+# cascade). lws_jax implements the same math independently in
 # windows.py / weights.py / stft.py; the golden tests compare the two, so
-# keep this block free of lws_tpu imports.
+# keep this block free of lws_jax imports.
 # ---------------------------------------------------------------------------
 
 def hann(n, symmetric=True, use_offset=False):

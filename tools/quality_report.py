@@ -1,4 +1,4 @@
-"""Generate the QUALITY.md parity table: lws_tpu vs the reference C core at
+"""Generate the QUALITY.md parity table: lws_jax vs the reference C core at
 equal iteration counts, on the golden configurations.
 
 Run on CPU (float64): python tools/quality_report.py
@@ -17,7 +17,7 @@ import numpy as np  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-from lws_tpu import LWS, get_thresholds  # noqa: E402
+from lws_jax import LWS, get_thresholds  # noqa: E402
 
 
 def main():

@@ -1,4 +1,4 @@
-"""Multi-signal quality robustness study: lws_tpu vs the reference C core.
+"""Multi-signal quality robustness study: lws_jax vs the reference C core.
 
 QUALITY.md's headline table compares one golden signal per configuration;
 single-signal deltas of a few tenths of a dB are basin noise (both
@@ -29,7 +29,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 sys.path.insert(0, os.path.dirname(__file__))
 
 import make_goldens as mg  # noqa: E402
-from lws_tpu import LWS  # noqa: E402
+from lws_jax import LWS  # noqa: E402
 
 
 def study_signal(n, rng, sr=16000):
